@@ -1,0 +1,291 @@
+"""PyTorch port end to end: the ASR program, beam search, the engine's
+``transcribe`` and ``POST /api/asr``, held against the JAX package's
+non-fused program and engine on the CPU, on one shared weight set.
+
+Decoding is compared token for token (packed int32 equal). A token-exact
+comparison only means something when no decision is a near-tie, so the
+program test also asserts, for every decode step the port ran, that each
+row's top-2 margin and its candidate-set boundary (the KC-th vs the
+(KC+1)-th suppressed logit) stand above the 1e-4 logits tolerance that
+tests/test_torch_whisper.py holds the decoder to at the same weights.
+(The order of near-equal totals across beams in the 2K pool is not
+checked this way.)"""
+
+import asyncio
+import io
+import wave
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_port_helpers import (
+    JAX_CFG,
+    PORT_CFG,
+    audio_i16,
+    jax_params,
+    port_params,
+)
+from wis_tpu.decoding.fused import build_asr_program as jax_program
+from wis_tpu.models.whisper.tokenizer import (
+    DEFAULT_BEGIN_SUPPRESS,
+    DEFAULT_SUPPRESS_TOKENS,
+    build_prompt,
+)
+from wis_tpu_torch.decoding import beam as beam_mod
+from wis_tpu_torch.decoding.fused import build_asr_program, pack_ctl, packed_width
+
+torch.set_num_threads(1)
+
+LOGITS_TOL = 1e-4
+EMB_SCALE = 16.0
+MAX_NEW = 8
+N_SAMPLES = 64000
+
+
+class _Margins:
+    """Records the logits of every prefill and decode step the port's beam
+    search runs and the smallest margin among its decisive gaps."""
+
+    def __init__(self, monkeypatch, kc, suppress, begin_suppress):
+        self.kc = kc
+        self.worst = np.inf
+        sup = np.zeros(JAX_CFG.n_vocab, np.float32)
+        sup[list(suppress)] = -np.inf
+        begin = sup.copy()
+        begin[list(begin_suppress)] = -np.inf
+        step, prefill = beam_mod.decode_step, beam_mod.prefill
+
+        def rec_step(*a, **k):
+            logits, cache = step(*a, **k)
+            self._note(logits, sup)
+            return logits, cache
+
+        def rec_prefill(*a, **k):
+            logits, cache = prefill(*a, **k)
+            self._note(logits[:, -1], begin)
+            return logits, cache
+
+        monkeypatch.setattr(beam_mod, "decode_step", rec_step)
+        monkeypatch.setattr(beam_mod, "prefill", rec_prefill)
+
+    def _note(self, logits, mask):
+        top = -np.sort(-(logits.numpy() + mask), axis=-1)[:, : self.kc + 1]
+        gaps = [top[:, 0] - top[:, 1], top[:, self.kc - 1] - top[:, self.kc]]
+        self.worst = min(self.worst, float(np.min(gaps)))
+
+
+def _ctl(batch, detect_rows):
+    prompts = np.asarray(
+        [build_prompt("en"), build_prompt("de", "translate")][:batch], np.int32
+    )
+    return pack_ctl(prompts, np.asarray(detect_rows, np.int32), MAX_NEW)
+
+
+@pytest.mark.parametrize(
+    "beam,detect,quant,seed",  # audio seeds whose decisions clear the margin
+    [
+        (1, False, False, 1),
+        (1, True, True, 0),
+        (3, True, False, 0),
+        (3, False, True, 0),
+        (5, False, False, 1),
+        (5, True, False, 0),
+        (5, True, True, 1),
+        (5, False, True, 0),
+    ],
+)
+def test_asr_program_packed_equal(monkeypatch, beam, detect, quant, seed):
+    """Packed int32 equal to wis_tpu's non-fused program: greedy and beams,
+    detect on/off (row 1 keeps its forced language), translate on, f32
+    and int8 weights, a batch of two windows."""
+    kw = dict(
+        beam_size=beam, batch=2, max_new_tokens=MAX_NEW, prompt_len=4,
+        suppress_tokens=DEFAULT_SUPPRESS_TOKENS,
+        begin_suppress_tokens=DEFAULT_BEGIN_SUPPRESS,
+        detect_language=detect, translate=True, n_samples=N_SAMPLES,
+    )
+    audio = audio_i16(N_SAMPLES, seed=seed, batch=2)
+    ctl = _ctl(2, [1, 0])
+    want = np.asarray(
+        jax_program(JAX_CFG, **kw)(
+            jax_params(quant, emb_scale=EMB_SCALE), jnp.asarray(audio), jnp.asarray(ctl)
+        )
+    )
+    margins = _Margins(
+        monkeypatch, 1 if beam == 1 else beam + 1,
+        DEFAULT_SUPPRESS_TOKENS, DEFAULT_BEGIN_SUPPRESS,
+    )
+    got = build_asr_program(PORT_CFG, **kw)(
+        port_params(quant, emb_scale=EMB_SCALE),
+        torch.from_numpy(audio), torch.from_numpy(ctl),
+    )
+    assert got.dtype == torch.int32
+    assert got.shape == (2, 2 * packed_width(beam, MAX_NEW))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert margins.worst > LOGITS_TOL, margins.worst
+
+
+@pytest.mark.parametrize(
+    "beam,renorm,length_penalty", [(1, True, 1.0), (3, True, 1.0), (4, False, 0.7)]
+)
+def test_generate_with_midloop_finishes(beam, renorm, length_penalty):
+    """Beam search with an EOT id the model actually emits, so hypotheses
+    finish mid-loop and the finished store, early stop and length penalty
+    all act; both suppress-renormalization orders."""
+    from wis_tpu.decoding.beam import build_generate_xa as jax_generate
+    from wis_tpu.models.whisper import model as jm
+    from wis_tpu_torch.models.whisper import model as tm
+
+    jp = jax_params(False, emb_scale=EMB_SCALE)
+    tp = port_params(False, emb_scale=EMB_SCALE)
+    rng = np.random.default_rng(beam)
+    mel = rng.standard_normal((1, JAX_CFG.n_mels, 3000)).astype(np.float32)
+    j_xa = jm.cross_kv(jp, jm.encode(jp, jnp.asarray(mel), JAX_CFG), JAX_CFG)
+    with torch.inference_mode():
+        t_xa = tm.cross_kv(tp, tm.encode(tp, torch.from_numpy(mel), PORT_CFG), PORT_CFG)
+    prompt = np.asarray(build_prompt("en"), np.int32)
+    kw = dict(
+        beam_size=beam, batch=1, max_new_tokens=12, prompt_len=4,
+        suppress_tokens=(50258,), begin_suppress_tokens=(),
+        length_penalty=length_penalty, renorm_suppressed=renorm,
+    )
+    # a token the search itself emits second serves as EOT
+    with torch.inference_mode():
+        first = beam_mod.build_generate_xa(PORT_CFG, **kw)(
+            tp, t_xa, torch.from_numpy(prompt), 10
+        )
+    kw["eot_id"] = int(first.tokens[0, int(first.best[0]), 1])
+    want = jax_generate(JAX_CFG, **kw)(jp, j_xa, jnp.asarray(prompt), jnp.int32(10))
+    with torch.inference_mode():
+        got = beam_mod.build_generate_xa(PORT_CFG, **kw)(
+            tp, t_xa, torch.from_numpy(prompt), 10
+        )
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))
+    np.testing.assert_array_equal(got.best.numpy(), np.asarray(want.best))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores), rtol=1e-5)
+    if beam > 1:  # hypotheses did finish before the cap
+        assert (np.asarray(want.lengths) < 10).any()
+
+
+def test_timestamp_grammar_and_fused_paths_raise():
+    kw = dict(beam_size=1, batch=1, max_new_tokens=4, prompt_len=4,
+              suppress_tokens=(), begin_suppress_tokens=())
+    for extra in ({"with_timestamps": True}, {"fused_step": True}, {"chunked": True}):
+        with pytest.raises(NotImplementedError):
+            build_asr_program(PORT_CFG, **kw, **extra)
+
+
+# --------------------------------------------------------------------------- #
+# Engine and server on the tiny model, weights shared with the JAX registry
+# --------------------------------------------------------------------------- #
+def _jax_settings(**kw):
+    from wis_tpu.settings import APISettings
+
+    base = dict(whisper_model_default="tiny", dtype="float32", max_decode_tokens=8,
+                beam_size=1, long_beam_size=5, batch_window_s=0.01)
+    base.update(kw)
+    return APISettings(**base)
+
+
+@pytest.fixture(scope="module")
+def engines():
+    """(JAX engine, port engine) sharing the tiny weights the JAX registry
+    loaded. The JAX registry seeds random weights with hash(size), which
+    Python salts per process; pinning it keeps this test's weights fixed."""
+    from wis_tpu.runtime import residency as jax_residency
+    from wis_tpu.runtime.engine import WhisperEngine as JaxEngine
+    from wis_tpu_torch.models.whisper.weights import params_from_jax
+    from wis_tpu_torch.runtime.engine import WhisperEngine
+    from wis_tpu_torch.runtime.residency import ModelRegistry
+    from wis_tpu_torch.settings import APISettings
+
+    from torch_port_helpers import np_tree
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_residency, "hash", lambda s: 7, raising=False)
+        js = _jax_settings()
+        jax_engine = JaxEngine(jax_residency.ModelRegistry(js), js)
+        tree = np_tree(jax_engine.registry.get("tiny").params)
+    ps = APISettings(whisper_model_default="tiny", dtype="float32", max_decode_tokens=8,
+                     beam_size=1, long_beam_size=5)
+    port = WhisperEngine(ModelRegistry(ps, "cpu", jax_trees={"tiny": tree}))
+    assert "tok_emb_q" in port.registry.get("tiny").params["decoder"]
+    return jax_engine, port
+
+
+@pytest.mark.parametrize(
+    "seconds,beam,detect,translate", [(1.0, 1, False, False), (3.84, 5, True, True)]
+)
+def test_transcribe_text_equal(engines, seconds, beam, detect, translate):
+    jax_engine, port = engines
+    audio = audio_i16(int(seconds * 16000), seed=int(seconds * 100))[0]
+    kw = dict(beam_size=beam, detect_language=detect, translate=translate, max_tokens=8)
+    want = jax_engine.transcribe(audio, **kw)
+    got = port.transcribe(audio, **kw)
+    assert got.text and got.text == want.text
+    assert got.translation == want.translation
+    assert got.language == want.language
+    assert got.audio_duration_ms == want.audio_duration_ms
+    assert set(got.timings) >= {"features", "asr_dispatch", "decode_text"}
+    assert {k[:6] for k in port._programs} <= {k[:6] for k in jax_engine._programs}
+
+
+def test_engine_rejects_what_is_not_ported(engines):
+    from wis_tpu_torch.runtime.engine import WhisperEngine
+    from wis_tpu_torch.runtime.residency import ModelRegistry
+    from wis_tpu_torch.settings import APISettings
+
+    _, port = engines
+    with pytest.raises(ValueError, match="beam"):  # validated at boot
+        WhisperEngine(ModelRegistry(APISettings(long_beam_size=9), "cpu"))
+    with pytest.raises(NotImplementedError):
+        port.transcribe(np.zeros(16000 * 31, np.float32))  # chunked long-form
+    with pytest.raises(NotImplementedError):
+        port.transcribe(np.zeros(16000, np.float32), timestamps=True)
+    with pytest.raises(NotImplementedError):
+        port.transcribe_coalesced([])
+
+
+def _wav_bytes(seconds=1.0, seed=0) -> bytes:
+    pcm = audio_i16(int(seconds * 16000), seed)[0]
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def test_api_asr_served_by_port_engine(engines):
+    """POST /api/asr through wis_tpu's aiohttp app with the port engine:
+    the response fields of tests/test_server.py, and the engine's text."""
+    import aiohttp
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from wis_tpu.audio.ingest import load_audio
+    from wis_tpu.server.app import create_app
+
+    _, port = engines
+    body = _wav_bytes()
+
+    async def go():
+        client = TestClient(TestServer(create_app(settings=_jax_settings(), engine=port)))
+        await client.start_server()
+        try:
+            form = aiohttp.FormData()
+            form.add_field("audio_file", body, filename="a.wav", content_type="audio/wav")
+            resp = await client.post("/api/asr?model=tiny&beam_size=1", data=form)
+            assert resp.status == 200
+            return await resp.json()
+        finally:
+            await client.close()
+
+    data = asyncio.run(go())
+    assert set(data) >= {"infer_time", "infer_speedup", "audio_duration", "language", "text"}
+    assert data["audio_duration"] == 1000
+    assert data["language"] == "en"
+    assert data["text"] == port.transcribe(load_audio(body), beam_size=1).text

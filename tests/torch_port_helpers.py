@@ -1,0 +1,75 @@
+"""Shared pieces of the PyTorch-port parity tests (tests/test_torch_*.py).
+
+Both packages get the same inputs, made with numpy from a seed; the JAX
+package's parameter trees cross to the port through
+``wis_tpu_torch.models.whisper.weights.params_from_jax``.
+"""
+
+from functools import lru_cache
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from wis_tpu.models.whisper.config import WhisperConfig as JaxConfig
+from wis_tpu_torch.models.whisper.config import WhisperConfig as PortConfig
+from wis_tpu_torch.models.whisper.weights import params_from_jax
+
+#: a narrow whisper: 2 encoder + 2 decoder layers, D=128, 2 heads
+#: (head_dim 64), the real 51865-token vocabulary so the layout holds
+SMALL = dict(
+    name="small-parity",
+    n_audio_state=128,
+    n_audio_head=2,
+    n_audio_layer=2,
+    n_text_state=128,
+    n_text_head=2,
+    n_text_layer=2,
+)
+JAX_CFG = JaxConfig(**SMALL)
+PORT_CFG = PortConfig(**SMALL)
+
+
+def np_tree(tree):
+    """A JAX pytree → the same tree of numpy arrays."""
+    return jax.tree.map(np.asarray, tree)
+
+
+@lru_cache(maxsize=None)
+def jax_params(quant: bool = False, seed: int = 0, emb_scale: float = 1.0):
+    """f32 JAX random weights for SMALL, optionally int8-quantized the way
+    production quantizes (decoder + tok_emb_q). emb_scale widens the
+    token embedding: the random init's 1/sqrt(V) scale leaves the logits
+    nearly uniform (std ~0.05), so token-exact tests spread them to keep
+    every decision's margin far above the logits tolerance."""
+    from wis_tpu.models.whisper.weights import random_params
+
+    params = random_params(JAX_CFG, seed=seed, dtype=jnp.float32)
+    if emb_scale != 1.0:
+        dec = dict(params["decoder"], tok_emb=params["decoder"]["tok_emb"] * emb_scale)
+        params = dict(params, decoder=dec)
+    if quant:
+        from wis_tpu.ops.quant import quantize_whisper_params
+
+        params = quantize_whisper_params(params)
+    return params
+
+
+def port_params(quant: bool = False, seed: int = 0, emb_scale: float = 1.0):
+    """The same weights, bridged to torch on the CPU."""
+    return params_from_jax(np_tree(jax_params(quant, seed, emb_scale)))
+
+
+def to_np(x) -> np.ndarray:
+    """torch tensor or JAX array → numpy (bf16 as f32)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy() if x.is_floating_point() else x.numpy()
+    a = np.asarray(x)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def audio_i16(n_samples: int, seed: int, batch: int = 1) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    pcm = rng.standard_normal((batch, n_samples)) * 0.05
+    return np.clip(pcm * 32768.0, -32768, 32767).astype(np.int16)

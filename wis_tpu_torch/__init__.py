@@ -1,0 +1,20 @@
+"""wis_tpu_torch — the PyTorch/CUDA port of ``wis_tpu`` for NVIDIA Hopper.
+
+A second package beside the JAX one, laid out like it so each module's
+counterpart is easy to find:
+
+    wis_tpu_torch.audio     — log-mel frontend
+    wis_tpu_torch.models    — whisper config, tokenizer, weights, model
+    wis_tpu_torch.ops       — quantization, gelu, attention helpers and the
+                              hand-written Hopper kernels (``csrc/``)
+    wis_tpu_torch.decoding  — language detect, beam search, the ASR program
+    wis_tpu_torch.runtime   — model registry and the transcription engine
+
+It imports ``torch`` and never ``jax``: nothing here loads the
+``wis_tpu`` package, so it runs on a machine without JAX. The JAX package
+is the reference the CPU tests hold this port against.
+"""
+
+__version__ = "0.1.0"
+
+__all__ = ["__version__"]

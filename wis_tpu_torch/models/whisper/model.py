@@ -1,0 +1,296 @@
+"""Whisper encoder-decoder in PyTorch (port of
+``wis_tpu/models/whisper/model.py``).
+
+Plain functions on a parameter tree in the JAX package's layout (every
+transformer-block leaf stacked along a leading layer axis; matmul weights
+(in, out); int8 leaves ``{"q", "s"}``):
+
+    params["encoder"] = {conv1, conv2, pos (1500, D), blocks{attn_ln, attn,
+                         mlp_ln, mlp}, ln_post}
+    params["decoder"] = {tok_emb (V, D), pos (448, D), blocks{attn_ln, attn,
+                         cross_ln, cross, mlp_ln, mlp}, ln, [tok_emb_q]}
+
+The public layouts are the JAX package's: cross-attention K/V and the
+self-attention cache are time-minor ``(L, B, H, Dh, T)``; the decoder
+writes its K/V columns into the cache tensors in place.
+
+On a CUDA device the encoder runs the two hand-written Hopper kernels, under
+the JAX package's shape gates: every LayerNorm with D % 128 == 0 goes to
+``ops/layernorm.layer_norm_cuda``, and self-attention over T ≥ 512 with
+head_dim 64 or 128 goes to ``ops/flash.flash_attention_packed``, which
+takes bf16 only. On the CPU both take the plain formulas, as the JAX
+package does off TPU.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from wis_tpu_torch.models.whisper.config import WhisperConfig
+from wis_tpu_torch.models.whisper.stem import conv_stem
+from wis_tpu_torch.ops.attention import NEG_INF, merge_heads, qkv_heads
+from wis_tpu_torch.ops.flash import (
+    flash_attention_packed,
+    flash_attention_packed_plain,
+)
+from wis_tpu_torch.ops.gelu import gelu
+from wis_tpu_torch.ops.layernorm import layer_norm_cuda
+from wis_tpu_torch.ops.layernorm import layer_norm_plain as layer_norm
+from wis_tpu_torch.ops.quant import matmul_f32, qmatmul
+
+
+def _layer(tree: dict, li: int) -> dict:
+    """Layer ``li`` of a stacked-layer subtree (views, no copies)."""
+    return {
+        k: _layer(v, li) if isinstance(v, dict) else v[li] for k, v in tree.items()
+    }
+
+
+def _linear(x, w, b=None):
+    # double rounding as in the JAX package: the matmul rounds to x.dtype,
+    # then the f32 bias add rounds again
+    y = qmatmul(x, w)
+    if b is not None:
+        y = (y.float() + b.float()).to(x.dtype)
+    return y
+
+
+def _flash_ok(x: torch.Tensor, n_heads: int) -> bool:
+    """The JAX package's gate, by device and shape only: a CUDA tensor of
+    another dtype than bf16 reaches the kernel's wrapper, which raises."""
+    d = x.shape[-1]
+    return (
+        x.is_cuda
+        and x.shape[-2] >= 512
+        and d % n_heads == 0
+        and d // n_heads in (64, 128)
+    )
+
+
+def _attn_block(x, blk, n_heads):
+    """Encoder self-attention for one layer. Long sequences on the card
+    run the packed flash kernel: q/k/v stay (B, T, D) end to end and the
+    (H, T, T) scores never reach device memory."""
+    q = _linear(x, blk["q_w"], blk["q_b"])
+    k = _linear(x, blk["k_w"])
+    v = _linear(x, blk["v_w"], blk["v_b"])
+    if _flash_ok(x, n_heads):
+        attn = flash_attention_packed
+    else:
+        attn = flash_attention_packed_plain
+    return _linear(attn(q, k, v, n_heads), blk["o_w"], blk["o_b"])
+
+
+def _mlp(x, blk):
+    h = gelu(_linear(x, blk["w1"], blk["b1"]))
+    return _linear(h, blk["w2"], blk["b2"])
+
+
+def _enc_ln(x, g, b):
+    """Encoder LayerNorm: the CUDA kernel on the card, the plain formula
+    elsewhere."""
+    if x.is_cuda and x.shape[-1] % 128 == 0:
+        return layer_norm_cuda(x, g, b)
+    return layer_norm(x, g, b)
+
+
+# --------------------------------------------------------------------------- #
+# Encoder
+# --------------------------------------------------------------------------- #
+def encode(params: dict, mel: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
+    """mel (B, n_mels, 3000) → encoder states (B, 1500, D)."""
+    enc = params["encoder"]
+    x = conv_stem(enc, mel)
+    for li in range(cfg.n_audio_layer):
+        blk = _layer(enc["blocks"], li)
+        x = x + _attn_block(
+            _enc_ln(x, blk["attn_ln"]["g"], blk["attn_ln"]["b"]),
+            blk["attn"],
+            cfg.n_audio_head,
+        )
+        x = x + _mlp(_enc_ln(x, blk["mlp_ln"]["g"], blk["mlp_ln"]["b"]), blk["mlp"])
+    return _enc_ln(x, enc["ln_post"]["g"], enc["ln_post"]["b"])
+
+
+def cross_kv(params: dict, xa: torch.Tensor, cfg: WhisperConfig):
+    """Per-layer cross-attention K/V from encoder states: xa (B, 1500, D)
+    → (k, v) each (L, B, H, Dh, 1500), time-minor."""
+    dec = params["decoder"]
+    ks, vs = [], []
+    for li in range(cfg.n_text_layer):
+        cross = _layer(dec["blocks"], li)["cross"]
+        k = qkv_heads(_linear(xa, cross["k_w"]), cfg.n_text_head)
+        v = qkv_heads(_linear(xa, cross["v_w"], cross["v_b"]), cfg.n_text_head)
+        ks.append(k.transpose(-1, -2))
+        vs.append(v.transpose(-1, -2))
+    return torch.stack(ks), torch.stack(vs)
+
+
+# --------------------------------------------------------------------------- #
+# Decoder
+# --------------------------------------------------------------------------- #
+class DecoderCache(NamedTuple):
+    """Preallocated self-attention KV cache: k, v (L, B, H, Dh, T_max),
+    time-minor; pos — number of valid positions."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: int
+
+    @classmethod
+    def zeros(
+        cls,
+        cfg: WhisperConfig,
+        batch: int,
+        max_len: int,
+        dtype: torch.dtype,
+        device: torch.device,
+    ) -> "DecoderCache":
+        shape = (
+            cfg.n_text_layer,
+            batch,
+            cfg.n_text_head,
+            cfg.n_text_state // cfg.n_text_head,
+            max_len,
+        )
+        return cls(
+            torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device),
+            0,
+        )
+
+
+def _decoder_pass(
+    params: dict,
+    tokens: torch.Tensor,  # (B, T) int64
+    pos_offset: int,  # first token's absolute position
+    cache: DecoderCache,
+    xa_kv: Tuple[torch.Tensor, torch.Tensor],
+    cfg: WhisperConfig,
+    anc: Optional[torch.Tensor] = None,  # (Bq, K, T_max) ancestry, or None
+) -> Tuple[torch.Tensor, DecoderCache]:
+    """Run T tokens through the decoder, writing self-attention K/V into
+    the cache tensors in place at [pos_offset, pos_offset + T). Returns
+    (logits (B, T, V) f32, cache advanced by T)."""
+    dec = params["decoder"]
+    b, t = tokens.shape
+    max_len = cache.k.shape[4]
+    dtype = cache.k.dtype
+    device = tokens.device
+
+    x = dec["tok_emb"][tokens].to(dtype)
+    x = x + dec["pos"][pos_offset : pos_offset + t].to(dtype)
+
+    # attend to absolute positions <= own absolute position
+    key_pos = torch.arange(max_len, device=device)[None, :]
+    query_pos = torch.arange(pos_offset, pos_offset + t, device=device)[:, None]
+    mask = (key_pos <= query_pos)[None, None]  # (1, 1, T, T_max)
+
+    xa_k, xa_v = xa_kv  # (L, Bx, H, Dh, S)
+    group = b // xa_k.shape[1]
+    n_head = cfg.n_text_head
+    dh = cfg.n_text_state // n_head
+    scale = dh ** -0.5
+
+    def _self_attn(q, ck, cv):
+        # q (B, H, T, Dh); ck/cv (B, H, Dh, T_max) time-minor
+        scores = torch.matmul(q.float(), ck.float()) * scale
+        scores = torch.where(mask, scores, NEG_INF)
+        w = torch.softmax(scores, dim=-1).to(cv.dtype)
+        return torch.matmul(w, cv.transpose(-1, -2))
+
+    # Ancestry-indirect beam attention (single-token decode): beams never
+    # permute the cache; anc[b, k, s] names the physical row that holds
+    # logical beam k's history at position s (-1 = unwritten). Scores run
+    # against all K physical rows and sel picks each position's true row.
+    if anc is not None:
+        k_beams = anc.shape[1]
+        bq = anc.shape[0]
+        rows = torch.arange(k_beams, device=device)
+        # sel[b, k, p, s] = physical row p holds (b, k)'s history at s
+        sel = (anc[..., None] == rows).transpose(-1, -2)  # (Bq, K, K, T)
+
+    def _self_attn_anc(q, ck, cv):
+        # q (BK, H, 1, Dh); ck/cv (BK, H, Dh, T_max), rows grouped (Bq, K)
+        qk = q.reshape(bq, k_beams, n_head, dh)
+        ckk = ck.reshape(bq, k_beams, *ck.shape[1:])
+        cvv = cv.reshape(bq, k_beams, *cv.shape[1:])
+        scores = torch.einsum("bkhd,bphds->bkhps", qk.float(), ckk.float()) * scale
+        scores = torch.where(sel[:, :, None], scores, NEG_INF)
+        w = torch.softmax(scores.reshape(bq, k_beams, n_head, -1), dim=-1)
+        w = w.reshape(scores.shape).to(cv.dtype)
+        out = torch.einsum("bkhps,bphds->bkhd", w, cvv)
+        return out.reshape(b, n_head, 1, dh)
+
+    def _cross_attn(q, xk, xv):
+        # q (B, H, T, Dh) → grouped (Bx, G, H, T, Dh); xk/xv (Bx, H, Dh, S)
+        qg = q.reshape(q.shape[0] // group, group, *q.shape[1:])
+        scores = torch.einsum("bghtd,bhds->bghts", qg.float(), xk.float()) * scale
+        w = torch.softmax(scores, dim=-1).to(xv.dtype)
+        ctx = torch.einsum("bghts,bhds->bghtd", w, xv)
+        return ctx.reshape(q.shape)
+
+    attn_fn = _self_attn_anc if anc is not None else _self_attn
+    for li in range(cfg.n_text_layer):
+        blk = _layer(dec["blocks"], li)
+        h = layer_norm(x, blk["attn_ln"]["g"], blk["attn_ln"]["b"])
+        q = qkv_heads(_linear(h, blk["attn"]["q_w"], blk["attn"]["q_b"]), n_head)
+        k_new = qkv_heads(_linear(h, blk["attn"]["k_w"]), n_head)
+        v_new = qkv_heads(_linear(h, blk["attn"]["v_w"], blk["attn"]["v_b"]), n_head)
+        # in-place column write at [li, :, :, :, pos_offset:pos_offset+t)
+        cache.k[li, :, :, :, pos_offset : pos_offset + t] = k_new.transpose(-1, -2)
+        cache.v[li, :, :, :, pos_offset : pos_offset + t] = v_new.transpose(-1, -2)
+        x = x + _linear(
+            merge_heads(attn_fn(q, cache.k[li], cache.v[li])),
+            blk["attn"]["o_w"],
+            blk["attn"]["o_b"],
+        )
+        h = layer_norm(x, blk["cross_ln"]["g"], blk["cross_ln"]["b"])
+        qc = qkv_heads(_linear(h, blk["cross"]["q_w"], blk["cross"]["q_b"]), n_head)
+        x = x + _linear(
+            merge_heads(_cross_attn(qc, xa_k[li], xa_v[li])),
+            blk["cross"]["o_w"],
+            blk["cross"]["o_b"],
+        )
+        x = x + _mlp(layer_norm(x, blk["mlp_ln"]["g"], blk["mlp_ln"]["b"]), blk["mlp"])
+
+    x = layer_norm(x, dec["ln"]["g"], dec["ln"]["b"])
+    if "tok_emb_q" in dec:
+        # per-row int8 logits: the dot runs on the int8 rows (exact in
+        # bf16) with an f32 result, and each vocab row's scale applies
+        # after the contraction
+        eq = dec["tok_emb_q"]
+        logits = matmul_f32(x, eq["q"].to(x.dtype).T) * eq["s"][:, 0]
+    else:
+        logits = matmul_f32(x, dec["tok_emb"].to(x.dtype).T)
+    return logits, DecoderCache(cache.k, cache.v, pos_offset + t)
+
+
+def prefill(
+    params: dict,
+    prompt: torch.Tensor,  # (B, P)
+    cache: DecoderCache,
+    xa_kv,
+    cfg: WhisperConfig,
+) -> Tuple[torch.Tensor, DecoderCache]:
+    """Run the prompt through the decoder → (logits (B, P, V) f32, cache)."""
+    return _decoder_pass(params, prompt, 0, cache, xa_kv, cfg)
+
+
+def decode_step(
+    params: dict,
+    tokens: torch.Tensor,  # (B,) — last token per sequence
+    cache: DecoderCache,
+    xa_kv,
+    cfg: WhisperConfig,
+    anc: Optional[torch.Tensor] = None,  # optional (Bq, K, T_max) ancestry
+) -> Tuple[torch.Tensor, DecoderCache]:
+    """One autoregressive step → (logits (B, V) f32, cache). With ``anc``,
+    self-attention resolves each logical beam's history through the
+    ancestry map instead of assuming contiguous rows."""
+    logits, cache = _decoder_pass(
+        params, tokens[:, None], cache.pos, cache, xa_kv, cfg, anc=anc
+    )
+    return logits[:, 0], cache

@@ -1,0 +1,264 @@
+"""Whisper tokenizer layout, prompts and text decode — the ASR half of
+``wis_tpu/models/whisper/tokenizer.py``, carried as a copy. Loading that
+file by path would still import ``wis_tpu.languages`` and so the
+``wis_tpu`` package, which the port never loads.
+
+Special-token ids are computed from the public multilingual vocabulary
+layout, so prompt construction needs no vocabulary files. Text decode is
+GPT-2 byte-level, from HF ``vocab.json`` / ``tokenizer.json`` when a model
+directory provides one, else the same deterministic placeholder vocabulary
+the JAX package uses. BPE *encode* (XTTS text conditioning) is not part of
+the ASR path and is not carried. A CPU test holds the layout, prompts,
+suppress lists and placeholder decode equal to ``wis_tpu``'s.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import dataclass, field
+from functools import lru_cache
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from wis_tpu_torch.languages import LANGUAGES
+
+EOT = 50257  # <|endoftext|>
+SOT = 50258  # <|startoftranscript|>
+LANG_BASE = 50259  # <|en|> .. language tokens in registry order
+
+_LANG_CODES = list(LANGUAGES.keys())
+_LANG_CODES_V3 = _LANG_CODES + ["yue"]  # Cantonese, added by large-v3
+N_TIMESTAMPS = 1501  # <|0.00|> .. <|30.00|> in 20 ms steps
+
+
+@dataclass(frozen=True)
+class VocabLayout:
+    """Derived special-token ids for a given language-token count."""
+
+    n_langs: int
+
+    @property
+    def eot(self) -> int:
+        return EOT
+
+    @property
+    def sot(self) -> int:
+        return SOT
+
+    @property
+    def lang_base(self) -> int:
+        return LANG_BASE
+
+    @property
+    def translate(self) -> int:
+        return LANG_BASE + self.n_langs
+
+    @property
+    def transcribe(self) -> int:
+        return self.translate + 1
+
+    @property
+    def sot_lm(self) -> int:
+        return self.translate + 2
+
+    @property
+    def sot_prev(self) -> int:
+        return self.translate + 3
+
+    @property
+    def no_speech(self) -> int:
+        return self.translate + 4
+
+    @property
+    def no_timestamps(self) -> int:
+        return self.translate + 5
+
+    @property
+    def timestamp_base(self) -> int:
+        return self.translate + 6
+
+    @property
+    def n_vocab(self) -> int:
+        return self.timestamp_base + N_TIMESTAMPS
+
+    @property
+    def lang_codes(self) -> List[str]:
+        return _LANG_CODES_V3[: self.n_langs]
+
+    def lang_token(self, code: str) -> int:
+        codes = self.lang_codes
+        try:
+            return LANG_BASE + codes.index(code)
+        except ValueError:
+            return LANG_BASE + codes.index("en")
+
+
+V2_LAYOUT = VocabLayout(n_langs=99)
+V3_LAYOUT = VocabLayout(n_langs=100)
+
+
+def layout_for_vocab(n_vocab: int) -> VocabLayout:
+    """Map a config's vocabulary size to its special-token layout."""
+    if n_vocab == V3_LAYOUT.n_vocab:
+        return V3_LAYOUT
+    if n_vocab == V2_LAYOUT.n_vocab:
+        return V2_LAYOUT
+    raise ValueError(f"No known whisper vocab layout of size {n_vocab}")
+
+
+#: default token-suppression list for multilingual checkpoints (HF
+#: generation_config.json `suppress_tokens`)
+DEFAULT_SUPPRESS_TOKENS: Tuple[int, ...] = (
+    1, 2, 7, 8, 9, 10, 14, 25, 26, 27, 28, 29, 31, 58, 59, 60, 61, 62, 63,
+    90, 91, 92, 93, 359, 503, 522, 542, 873, 893, 902, 918, 922, 931, 1350,
+    1853, 1982, 2460, 2627, 3246, 3253, 3268, 3536, 3846, 3961, 4183, 4667,
+    6585, 6647, 7273, 9061, 9383, 10428, 10929, 11938, 12033, 12331, 12562,
+    13793, 14157, 14635, 15265, 15618, 16553, 16604, 18362, 18956, 20075,
+    21675, 22520, 26130, 26161, 26435, 28279, 29464, 31650, 32302, 32470,
+    36865, 42863, 47425, 49870, 50254, 50258, 50358, 50359, 50360, 50361,
+    50362,
+)
+DEFAULT_BEGIN_SUPPRESS: Tuple[int, ...] = (220, EOT)
+
+#: the BPE-symbol half of the default suppress list (ids < EOT are
+#: layout-independent; the special-token tail shifts with the layout)
+_SUPPRESS_SYMBOLS: Tuple[int, ...] = tuple(
+    t for t in DEFAULT_SUPPRESS_TOKENS if t < EOT
+)
+
+
+def default_suppress_tokens(layout: VocabLayout = V2_LAYOUT) -> Tuple[int, ...]:
+    """The HF suppress list for a layout: shared symbol ids plus the
+    layout's special-token tail."""
+    return _SUPPRESS_SYMBOLS + (
+        layout.sot,
+        layout.translate,
+        layout.transcribe,
+        layout.sot_lm,
+        layout.sot_prev,
+        layout.no_speech,
+    )
+
+
+@lru_cache(maxsize=1)
+def _bytes_to_unicode() -> Dict[int, str]:
+    """GPT-2 byte ↔ printable-unicode bijection (standard algorithm)."""
+    bs = (
+        list(range(ord("!"), ord("~") + 1))
+        + list(range(ord("¡"), ord("¬") + 1))
+        + list(range(ord("®"), ord("ÿ") + 1))
+    )
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, [chr(c) for c in cs]))
+
+
+def build_prompt(
+    language: str = "en",
+    task: str = "transcribe",
+    notimestamps: bool = True,
+    layout: VocabLayout = V2_LAYOUT,
+) -> List[int]:
+    """<|startoftranscript|><|lang|><|task|>[<|notimestamps|>]."""
+    lang_tok = layout.lang_token(language)
+    task_tok = layout.translate if task == "translate" else layout.transcribe
+    ids = [SOT, lang_tok, task_tok]
+    if notimestamps:
+        ids.append(layout.no_timestamps)
+    return ids
+
+
+@dataclass
+class WhisperTokenizer:
+    """Byte-level BPE decode with the Whisper special-token layout."""
+
+    vocab: Optional[Dict[str, int]] = None  # token string -> id
+    suppress_tokens: Tuple[int, ...] = DEFAULT_SUPPRESS_TOKENS
+    begin_suppress_tokens: Tuple[int, ...] = DEFAULT_BEGIN_SUPPRESS
+    layout: VocabLayout = V2_LAYOUT
+    _id_to_token: Dict[int, str] = field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.vocab:
+            self._id_to_token = {v: k for k, v in self.vocab.items()}
+        if (
+            self.layout is not V2_LAYOUT
+            and self.suppress_tokens == DEFAULT_SUPPRESS_TOKENS
+        ):
+            self.suppress_tokens = default_suppress_tokens(self.layout)
+
+    @classmethod
+    def from_dir(
+        cls, model_dir: str, layout: VocabLayout = V2_LAYOUT
+    ) -> "WhisperTokenizer":
+        """Load the vocabulary (tokenizer.json or vocab.json) and the
+        generation config's suppress lists from an HF model directory;
+        fall back to the placeholder vocab."""
+        vocab = None
+        tok_json = os.path.join(model_dir, "tokenizer.json")
+        vocab_json = os.path.join(model_dir, "vocab.json")
+        if os.path.isfile(tok_json):
+            with open(tok_json, encoding="utf-8") as f:
+                vocab = json.load(f)["model"]["vocab"]
+        elif os.path.isfile(vocab_json):
+            with open(vocab_json, encoding="utf-8") as f:
+                vocab = json.load(f)
+        suppress = DEFAULT_SUPPRESS_TOKENS
+        begin_suppress = DEFAULT_BEGIN_SUPPRESS
+        gen_cfg = os.path.join(model_dir, "generation_config.json")
+        if os.path.isfile(gen_cfg):
+            with open(gen_cfg, encoding="utf-8") as f:
+                g = json.load(f)
+            suppress = tuple(g.get("suppress_tokens") or suppress)
+            begin_suppress = tuple(
+                g.get("begin_suppress_tokens") or begin_suppress
+            )
+        return cls(
+            vocab=vocab,
+            suppress_tokens=suppress,
+            begin_suppress_tokens=begin_suppress,
+            layout=layout,
+        )
+
+    def decode(self, ids: Sequence[int], skip_special: bool = True) -> str:
+        toks: List[str] = []
+        for i in ids:
+            i = int(i)
+            if i >= EOT:
+                if not skip_special:
+                    toks.append(self._special_str(i))
+                continue
+            toks.append(self._token_str(i))
+        text = "".join(toks)
+        byte_dec = {c: b for b, c in _bytes_to_unicode().items()}
+        raw = bytes(byte_dec.get(ch, ord(" ")) for ch in text)
+        return raw.decode("utf-8", errors="replace")
+
+    def _token_str(self, i: int) -> str:
+        if self._id_to_token:
+            return self._id_to_token.get(i, "")
+        # placeholder vocab: stable, reversible-ish rendering
+        return f"Ġt{i}" if i % 7 == 0 else f"t{i}"
+
+    def _special_str(self, i: int) -> str:
+        lay = self.layout
+        if i == EOT:
+            return "<|endoftext|>"
+        if i == SOT:
+            return "<|startoftranscript|>"
+        if LANG_BASE <= i < LANG_BASE + lay.n_langs:
+            return f"<|{lay.lang_codes[i - LANG_BASE]}|>"
+        if i == lay.translate:
+            return "<|translate|>"
+        if i == lay.transcribe:
+            return "<|transcribe|>"
+        if i == lay.no_timestamps:
+            return "<|notimestamps|>"
+        if i >= lay.timestamp_base:
+            return f"<|{(i - lay.timestamp_base) * 0.02:.2f}|>"
+        return f"<|{i}|>"

@@ -1,0 +1,159 @@
+"""Model registry (port of ``wis_tpu/runtime/residency.py``).
+
+Loads a whisper size lazily onto one explicit device: the config, the
+weights, int8 quantization when ``settings.quant`` is int8 (decoder
+matmul weights plus ``tok_emb_q``, ``ops/quant.py``), and the tokenizer.
+
+Weights come from one of two sources:
+- a bridged tree (``jax_trees[size]``): numpy arrays in the JAX package's
+  layout, served exactly as given — quantize before bridging if the tree
+  should be int8 (the JAX registry's loaded trees already are);
+- otherwise seeded random weights made on the device. The seed is a
+  stable CRC of the size name. (The JAX registry seeds with
+  ``hash(size)``, which Python salts per process; the port does not
+  reproduce that.)
+
+Real checkpoints (HF safetensors) are not read by the port yet.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+import zlib
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+
+from wis_tpu_torch.device import DeviceLike, resolve_device
+from wis_tpu_torch.models.whisper.config import (
+    WHISPER_CONFIGS,
+    WhisperConfig,
+    resolve_model_name,
+)
+from wis_tpu_torch.models.whisper.tokenizer import WhisperTokenizer, layout_for_vocab
+from wis_tpu_torch.models.whisper.weights import params_from_jax, random_params
+from wis_tpu_torch.settings import APISettings
+
+logger = logging.getLogger("wis_tpu_torch")
+
+
+def stable_seed(size: str) -> int:
+    """The random-weight seed for a model size: the same in every process."""
+    return zlib.crc32(size.encode()) % 2**31
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+@dataclass
+class LoadedModel:
+    name: str
+    cfg: WhisperConfig
+    params: Dict
+    tokenizer: WhisperTokenizer
+    param_bytes: int
+
+
+class ModelRegistry:
+    """Lazy, thread-safe model store on one device."""
+
+    def __init__(
+        self,
+        settings: APISettings,
+        device: DeviceLike,
+        jax_trees: Optional[Dict[str, Dict]] = None,
+    ):
+        self.settings = settings
+        self.device = resolve_device(device)
+        self.dtype = getattr(torch, settings.dtype)
+        if self.device.type == "cuda" and self.dtype != torch.bfloat16:
+            # the encoder's flash attention kernel takes bf16 only
+            raise ValueError(
+                f"dtype {settings.dtype!r} on {self.device}: the CUDA path "
+                "runs bfloat16 activations"
+            )
+        self.jax_trees = dict(jax_trees or {})
+        self._models: Dict[str, LoadedModel] = {}
+        self._lock = threading.Lock()
+        self._tokenizer: Optional[WhisperTokenizer] = None
+
+    def tokenizer(self) -> WhisperTokenizer:
+        """Shared tokenizer across sizes, from the first model directory
+        that has one, else the placeholder vocabulary."""
+        if self._tokenizer is None:
+            for size in ("base", "tiny", "small", "medium", "large"):
+                d = self._model_dir(size)
+                if d:
+                    self._tokenizer = WhisperTokenizer.from_dir(d)
+                    break
+            else:
+                self._tokenizer = WhisperTokenizer()
+        return self._tokenizer
+
+    def _model_dir(self, size: str) -> Optional[str]:
+        root = self.settings.model_dir
+        for candidate in (
+            os.path.join(root, size),
+            os.path.join(root, f"whisper-{size}"),
+            os.path.join(root, f"tovera-wis-whisper-{size}"),
+        ):
+            if os.path.isdir(candidate):
+                return candidate
+        return None
+
+    def resident_bytes(self) -> int:
+        return sum(m.param_bytes for m in self._models.values())
+
+    def get(self, name: str) -> LoadedModel:
+        size = resolve_model_name(name)
+        with self._lock:
+            if size in self._models:
+                return self._models[size]
+            cfg = WHISPER_CONFIGS[size]
+            if size in self.jax_trees:
+                logger.info("REGISTRY: bridging whisper %s onto %s", size, self.device)
+                params = params_from_jax(self.jax_trees[size], self.device)
+            else:
+                logger.info(
+                    "REGISTRY: seeded random whisper %s on %s", size, self.device
+                )
+                params = random_params(cfg, stable_seed(size), self.device, self.dtype)
+                if self.settings.quant in ("int8", "int4"):
+                    from wis_tpu_torch.ops.quant import quantize_whisper_params
+
+                    params = quantize_whisper_params(params)
+            lay = layout_for_vocab(cfg.n_vocab)
+            tok = self.tokenizer()
+            if tok.layout is not lay:
+                d = self._model_dir(size)
+                tok = (
+                    WhisperTokenizer.from_dir(d, layout=lay)
+                    if d
+                    else WhisperTokenizer(layout=lay)
+                )
+            model = LoadedModel(size, cfg, params, tok, tree_bytes(params))
+            self._models[size] = model
+            return model
+
+    def loaded(self) -> Dict[str, LoadedModel]:
+        return dict(self._models)
+
+    def preload(self) -> None:
+        """Eager loads per the preload flags."""
+        s = self.settings
+        flags = {
+            "tiny": s.preload_whisper_model_tiny,
+            "base": s.preload_whisper_model_base,
+            "small": s.preload_whisper_model_small,
+            "medium": s.preload_whisper_model_medium,
+            "large": s.preload_whisper_model_large,
+        }
+        for size, flag in flags.items():
+            if s.preload_all_models or flag:
+                self.get(size)
