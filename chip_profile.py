@@ -9,18 +9,23 @@ Run from the repository root, with one card visible:
 Prints, each on its own line, with the card's name and power limit first:
 
 1. per-phase device-synchronised host times (medians) for one 30 s window:
-   log-mel, encoder, cross-KV; one beam-5 decode step (BK=5, ancestry);
-   beam-5 generate to caps of 32 and 100 tokens and greedy to 100;
-2. unprofiled request latency (``infer_time_ms``, medians of repeats) for
-   the bench's three large-v2 beam-5 shapes;
-3. one 3.84 s / 32-token request under ``torch.profiler``: kernel launches,
-   summed kernel time on the device, and the device's busy share two ways —
-   the union of kernel intervals over the profiled ``asr_dispatch`` span,
-   and summed kernel time over the unprofiled request's median latency
-   (the profiler slows the host, so the first understates the share).
+   log-mel, encoder, cross-KV; one beam-5 decode step (BK=5) of the eager
+   decoder (ancestry) and of the fused path (the step over a 128-position
+   cache with int8 cross-KV, and the int8 head); beam-5 generate to caps
+   of 32 and 100 tokens and greedy to 100, eager and fused;
+2. for each decode path — ``eager`` (``fused_decode="off"``) and ``fused``
+   (``"auto"``, the card's default) — unprofiled request latency
+   (``infer_time_ms``, medians of repeats) for the bench's three large-v2
+   beam-5 shapes, then one 3.84 s / 32-token request under
+   ``torch.profiler``: kernel launches, summed kernel time on the device,
+   and the device's busy share two ways — the union of kernel intervals
+   over the profiled ``asr_dispatch`` span, and summed kernel time over the
+   unprofiled request's median latency (the profiler slows the host, so
+   the first understates the share).
 
-The operator table by device time goes to ``<out>/profile_ops.txt``. The
-last line is one JSON object with every number above.
+Each path's operator table by device time goes to
+``<out>/profile_ops_<path>.txt``. The last line is one JSON object with
+every number above, each path's keys prefixed with its name.
 """
 
 from __future__ import annotations
@@ -34,7 +39,10 @@ import sys
 import tempfile
 import time
 
-from chip_smoke import REQUESTS, _audio_i16
+from chip_smoke import REQUESTS, _audio_i16, _step_inputs
+
+#: settings.fused_decode for each decode path
+PATHS = {"eager": "off", "fused": "auto"}
 
 
 def _median_s(torch, fn, reps):
@@ -78,18 +86,45 @@ def phase_times(torch, engine, loaded):
             torch, lambda: m.decode_step(params, tokens, cache, xa_kv, cfg, anc=anc), 10
         )
 
-        for beam, cap in ((5, 32), (5, 100), (1, 100)):
-            gen = build_generate_xa(
-                cfg, beam_size=beam, batch=1, max_new_tokens=cap,
-                prompt_len=prompt.shape[0], suppress_tokens=tok.suppress_tokens,
-                begin_suppress_tokens=tok.begin_suppress_tokens,
-            )
-            res = gen(params, xa_kv, prompt, cap)
-            steps = int(res.lengths[0, int(res.best[0])])
-            ms = _median_s(torch, lambda: gen(params, xa_kv, prompt, cap), 3)
-            out[f"generate_beam{beam}_cap{cap}_ms"] = ms
-            out[f"generate_beam{beam}_cap{cap}_best_len"] = steps
+        out.update(fused_step_times(torch, engine, loaded))
+
+        packed, xa_int8 = engine._packed_decoder(loaded), engine._xa_int8()
+        for fused in (False, True):
+            for beam, cap in ((5, 32), (5, 100), (1, 100)):
+                gen = build_generate_xa(
+                    cfg, beam_size=beam, batch=1, max_new_tokens=cap,
+                    prompt_len=prompt.shape[0], suppress_tokens=tok.suppress_tokens,
+                    begin_suppress_tokens=tok.begin_suppress_tokens,
+                    fused=fused, xa_int8=fused and xa_int8,
+                )
+                weights = (params, packed) if fused else (params,)
+                res = gen(*weights, xa_kv, prompt, cap)
+                steps = int(res.lengths[0, int(res.best[0])])
+                ms = _median_s(torch, lambda: gen(*weights, xa_kv, prompt, cap), 3)
+                name = f"{'fused_' if fused else ''}generate_beam{beam}_cap{cap}"
+                out[f"{name}_ms"] = ms
+                out[f"{name}_best_len"] = steps
     return out
+
+
+def fused_step_times(torch, engine, loaded):
+    """One fused decode step (BK=5, 128-position cache, int8 cross-KV) and
+    one int8 head call, timed like the eager step above."""
+    from wis_tpu_torch.ops.fused_decode import fused_decode_step
+    from wis_tpu_torch.ops.fused_logits import fused_logits_topk
+
+    cfg, dec = loaded.cfg, loaded.params["decoder"]
+    packed = engine._packed_decoder(loaded)
+    inp = _step_inputs(torch, engine.device, cfg, 128, True, False, seed=0)
+    x = fused_decode_step(cfg, packed, **inp)[0]
+    sup = torch.zeros(cfg.n_vocab, device=engine.device)
+    return {
+        "fused_step_bk5_t128_ms": _median_s(
+            torch, lambda: fused_decode_step(cfg, packed, **inp), 10),
+        "fused_head_bk5_int8_ms": _median_s(
+            torch, lambda: fused_logits_topk(x, dec["ln"]["g"], dec["ln"]["b"],
+                                             dec["tok_emb_q"], sup, k=6), 10),
+    }
 
 
 def request_latency(engine, reps=3):
@@ -114,7 +149,7 @@ def _union_us(intervals):
     return total
 
 
-def profiled_request(torch, engine, out_dir, unprofiled_ms):
+def profiled_request(torch, engine, out_dir, unprofiled_ms, tag):
     from torch.profiler import ProfilerActivity, profile
 
     ms, cap = REQUESTS[0]
@@ -143,7 +178,7 @@ def profiled_request(torch, engine, out_dir, unprofiled_ms):
     kernel_ms = sum(y - x for x, y in kernels) / 1000.0
     table = prof.key_averages().table(sort_by="device_time_total", row_limit=40)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_ops.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_ops_{tag}.txt"), "w") as f:
         f.write(table)
     return {
         "profiled_request_infer_ms": res.infer_time_ms,
@@ -177,20 +212,24 @@ def main() -> int:
                            long_beam_size=5, quant="int8")
     engine = WhisperEngine(ModelRegistry(settings, "cuda"))
     loaded = engine.registry.get("large")
-    engine.transcribe(_audio_i16(1000, 99), beam_size=5, max_tokens=4)  # warm-up
 
     result = {"device": smi}
-    for part in (phase_times(torch, engine, loaded), request_latency(engine)):
+
+    def report(part, prefix=""):
         for key, val in part.items():
-            print(f"{key}: {val}")
-        result.update(part)
+            print(f"{prefix}{key}: {val}")
+            result[prefix + key] = val
+
+    report(phase_times(torch, engine, loaded))
     ms, cap = REQUESTS[0]
-    part = profiled_request(
-        torch, engine, args.out, result[f"request_{ms}ms_cap{cap}_infer_ms"]
-    )
-    for key, val in part.items():
-        print(f"{key}: {val}")
-    result.update(part)
+    for path, mode in PATHS.items():
+        settings.fused_decode = mode
+        engine.transcribe(_audio_i16(1000, 99), beam_size=5, max_tokens=4)  # warm-up
+        latency = request_latency(engine)
+        report(latency, f"{path}_")
+        report(profiled_request(torch, engine, args.out,
+                                latency[f"request_{ms}ms_cap{cap}_infer_ms"], path),
+               f"{path}_")
     print(json.dumps(result))
     return 0
 

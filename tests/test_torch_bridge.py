@@ -51,7 +51,7 @@ def test_every_leaf_round_trips(dtype):
             jax_random_params(JAX_CFG, seed=1, dtype=getattr(jnp, dtype))
         )
     )
-    got = params_from_jax(tree)
+    got = params_from_jax(tree, "cpu")
     src = dict(_leaves(tree))
     dst = dict(_leaves(got))
     assert src.keys() == dst.keys()
@@ -98,7 +98,7 @@ def test_quantizers_bit_equal(kind):
     if kind == "whisper_params":
         src = jax_random_params(JAX_CFG, seed=2, dtype=jnp.float32)
         want = dict(_leaves(np_tree(jq.quantize_whisper_params(src))))
-        got = dict(_leaves(tq.quantize_whisper_params(params_from_jax(np_tree(src)))))
+        got = dict(_leaves(tq.quantize_whisper_params(params_from_jax(np_tree(src), "cpu"))))
         assert want.keys() == got.keys()
     else:
         w = rng.standard_normal((3, 96, 40)).astype(np.float32)

@@ -1,7 +1,10 @@
 """The hand-written Hopper kernels against their plain PyTorch versions, on
 the card: edge shapes the main path does not reach (ragged key and query
-tiles, batches, row counts off the block size, float32 LayerNorm), the
-wrappers' refusals, and the encoder's routing to both kernels.
+tiles, batches, row counts off the block size, float32 LayerNorm; the
+fused step at 1, 5 and 10 rows over one or two audio windows, the head
+at 1 to 8 candidates over ragged vocabularies), the wrappers' refusals,
+and the encoder's routing to its two kernels. The fused kernels'
+tolerances are stated above their tests.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one. The card's machine has no JAX, so run them there without the suite's
@@ -197,3 +200,189 @@ def test_float32_on_the_card_is_refused_not_run_plain(dev):
         model_mod.encode(params, mel, cfg)
     with pytest.raises(ValueError, match="bfloat16"):
         ModelRegistry(APISettings(dtype="float32"), dev)
+
+
+# --------------------------------------------------------------------------- #
+# The fused decode step and the fused logits head (tolerances as in
+# chip_smoke.py: the step's x_out and written K/V columns within 2e-2 of
+# the plain version in relative norm — both run every product on the same
+# bf16 operands in f32, in another summation order, and a bf16 rounding
+# flip anywhere moves the layers after it — and every other cache column
+# bit-identical; the head's values and lse within 0.05, a one-ulp flip of
+# one bf16 LayerNorm output times an embedding element)
+# --------------------------------------------------------------------------- #
+STEP_REL_NORM = 2e-2
+HEAD_ATOL = 0.05
+
+
+def _narrow_decoder(dev, n_layer=2, d=256, heads=4):
+    from wis_tpu_torch.models.whisper.config import WhisperConfig
+    from wis_tpu_torch.models.whisper.weights import random_params
+    from wis_tpu_torch.ops.fused_decode import pack_decoder
+
+    cfg = WhisperConfig(name="narrow", n_audio_state=d, n_audio_head=heads,
+                        n_audio_layer=1, n_text_state=d, n_text_head=heads,
+                        n_text_layer=n_layer)
+    return cfg, pack_decoder(random_params(cfg, seed=3, device=dev), cfg)
+
+
+def _step_case(dev, cfg, bk, n_seq, t_cache, s_audio, xa_int8, seed):
+    """Step inputs at position t_cache // 2 with random ancestry inside
+    each sequence's beams; the columns no row selects, and the cross-KV
+    pad columns, hold keys of ±30 and values of 100 (a kernel reading them
+    moves every output far off)."""
+    from wis_tpu_torch.ops.fused_decode import quantize_xa_columns
+
+    L, D, H = cfg.n_text_layer, cfg.n_text_state, cfg.n_text_head
+    beams = bk // n_seq
+    s_pad = ((s_audio + 127) // 128) * 128
+    pos = t_cache // 2
+    rng = np.random.default_rng(seed)
+    sel = np.zeros((bk, t_cache, bk), np.float32)
+    for r in range(bk):
+        base = (r // beams) * beams
+        sel[r, np.arange(pos), base + rng.integers(0, beams, pos)] = 1.0
+    sel = torch.from_numpy(sel.reshape(bk, t_cache * bk)).to(dev)
+    kc = _randn(rng, (L, D, bk * t_cache), dev, torch.float32, scale=0.5)
+    vc = _randn(rng, (L, D, bk * t_cache), dev, torch.float32, scale=0.5)
+    excluded = sel.sum(dim=0) == 0
+    kc[:, :, excluded] = 30.0 * torch.sign(kc[:, :, excluded])
+    vc[:, :, excluded] = 100.0
+    xk = _randn(rng, (L, H, D // H, n_seq * s_pad), dev, torch.float32, scale=0.5)
+    xv = _randn(rng, (L, H, D // H, n_seq * s_pad), dev, torch.float32, scale=0.5)
+    pad = (torch.arange(n_seq * s_pad, device=dev) % s_pad) >= s_audio
+    xk[..., pad] = 30.0 * torch.sign(xk[..., pad])
+    xv[..., pad] = 100.0
+    kc, vc, xk, xv = (t.to(torch.bfloat16) for t in (kc, vc, xk, xv))
+    xs = None
+    if xa_int8:
+        xk, xv, xs = quantize_xa_columns(xk, xv)
+    x = _randn(rng, (bk, D), dev, torch.float32, scale=0.5)
+    return dict(x_emb=x, k_cache=kc, v_cache=vc, xa_k=xk, xa_v=xv, sel=sel, pos=pos,
+                n_seq=n_seq, s_audio=s_audio, xa_s=xs)
+
+
+@pytest.mark.parametrize(
+    "bk,n_seq,t_cache,s_audio,xa_int8",
+    [
+        (1, 1, 128, 1500, True),  # greedy
+        (5, 1, 256, 1500, False),
+        (10, 2, 128, 1500, True),  # two windows, block-diagonal cross-attention
+        (10, 2, 256, 100, False),  # a short window: pad columns masked
+    ],
+)
+def test_fused_step_kernel_matches_plain(dev, bk, n_seq, t_cache, s_audio, xa_int8):
+    from wis_tpu_torch.ops.fused_decode import fused_decode_step, fused_decode_step_plain
+
+    cfg, packed = _narrow_decoder(dev)
+    inp = _step_case(dev, cfg, bk, n_seq, t_cache, s_audio, xa_int8, seed=bk + t_cache)
+    kc0, vc0 = inp["k_cache"], inp["v_cache"]
+    before = fused_decode_step.launches
+    got = fused_decode_step(cfg, packed, **dict(inp, k_cache=kc0.clone(), v_cache=vc0.clone()))
+    want = fused_decode_step_plain(
+        cfg, packed, **dict(inp, k_cache=kc0.clone(), v_cache=vc0.clone()))
+    torch.cuda.synchronize()
+    assert fused_decode_step.launches == before + 1
+    cols = slice(inp["pos"] * bk, (inp["pos"] + 1) * bk)
+    other = torch.ones(kc0.shape[-1], dtype=torch.bool, device=dev)
+    other[cols] = False
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    assert got[0].shape == (bk, cfg.n_text_state) and bool(torch.isfinite(got[0]).all())
+    assert rel(got[0], want[0]) <= STEP_REL_NORM
+    for g, w, before_c in ((got[1], want[1], kc0), (got[2], want[2], vc0)):
+        assert rel(g[..., cols], w[..., cols]) <= STEP_REL_NORM
+        assert torch.equal(g[..., other], before_c[..., other])
+
+
+def test_fused_step_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from wis_tpu_torch.ops.fused_decode import fused_decode_step
+
+    cfg, packed = _narrow_decoder(dev)
+    inp = _step_case(dev, cfg, 5, 1, 128, 1500, True, seed=0)
+    before = fused_decode_step.launches
+    for bad, match in (
+        (dict(x_emb=inp["x_emb"].bfloat16()), "x_emb must be f32"),
+        (dict(k_cache=inp["k_cache"][:1].contiguous()), "k_cache must be"),
+        (dict(v_cache=inp["v_cache"].float()), "v_cache must be bf16"),
+        (dict(xa_s=None), "xa_k must be"),
+        (dict(sel=inp["sel"].bfloat16()), "sel must be f32"),
+        (dict(x_emb=torch.zeros((33, cfg.n_text_state), device=dev)), "BK=33"),
+        (dict(pos=128), "pos 128"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            fused_decode_step(cfg, packed, **dict(inp, **bad))
+    assert fused_decode_step.launches == before
+
+
+def _head_inputs(dev, bk, v, seed, d=128):
+    rng = np.random.default_rng(seed)
+    x = _randn(rng, (bk, d), dev, torch.float32, scale=2.0, shift=0.3)
+    g = _randn(rng, (d,), dev, torch.float32, scale=0.1, shift=1.0)
+    b = _randn(rng, (d,), dev, torch.float32, scale=0.1)
+    emb = _randn(rng, (v, d), dev, torch.bfloat16)
+    sup = torch.zeros(v, device=dev)
+    sup[torch.from_numpy(rng.choice(v, v // 50, replace=False)).to(dev)] = -1e30
+    return x, g, b, emb, sup
+
+
+@pytest.mark.parametrize(
+    "bk,k,v",
+    [
+        (1, 1, 1000),  # greedy; 1000 = 7 chunks of 128 and a ragged 104
+        (10, 6, 1000),
+        (5, 6, 51865),  # the vocabulary's ragged last chunk (25 columns)
+        (32, 8, 333),  # the most rows and candidates the kernel takes
+    ],
+)
+@pytest.mark.parametrize("int8", [False, True])
+def test_fused_head_kernel_matches_plain(dev, bk, k, v, int8):
+    """Values and lse within HEAD_ATOL; each returned id's own logit equal
+    to the value returned beside it; ids equal to the plain version's
+    wherever the value sits more than 2·HEAD_ATOL from its neighbours
+    (closer values may legitimately swap)."""
+    from wis_tpu_torch.ops.fused_logits import fused_logits_topk, fused_logits_topk_plain
+    from wis_tpu_torch.ops.quant import quantize_rows
+
+    x, g, b, emb, sup = _head_inputs(dev, bk, v, seed=bk + v)
+    table = quantize_rows(emb) if int8 else emb
+    for full in (False, True):
+        before = fused_logits_topk.launches
+        val, tok, lse = fused_logits_topk(x, g, b, table, sup, k=k, full_lse=full)
+        want_val, want_tok, want_lse = fused_logits_topk_plain(x, g, b, table, sup, k=k,
+                                                               full_lse=full)
+        all_val, all_tok = fused_logits_topk_plain(x, g, b, table, sup, k=v)[:2]
+        torch.cuda.synchronize()
+        assert fused_logits_topk.launches == before + 1
+        assert tok.shape == (bk, k) and tok.dtype == torch.int64 and lse.shape == (bk, 1)
+        assert float((val - want_val).abs().max()) <= HEAD_ATOL
+        assert float((lse - want_lse).abs().max()) <= HEAD_ATOL
+        logits = torch.empty_like(all_val).scatter_(1, all_tok, all_val)
+        assert float((logits.gather(1, tok) - val).abs().max()) <= HEAD_ATOL
+        padded = torch.cat([all_val[:, :1] + 1e9, all_val[:, : k + 1]], dim=1)
+        clear = ((padded[:, :-2] - padded[:, 1:-1]) > 2 * HEAD_ATOL) & (
+            (padded[:, 1:-1] - padded[:, 2:]) > 2 * HEAD_ATOL)
+        assert torch.equal(tok[clear], want_tok[clear])
+
+
+def test_fused_head_refuses_what_the_kernel_does_not_take(dev):
+    from wis_tpu_torch.models.whisper.config import WhisperConfig
+    from wis_tpu_torch.ops.fused_logits import build_fused_logits_topk, fused_logits_topk
+
+    cfg = WhisperConfig(name="narrow", n_text_state=128, n_text_head=2)
+    with pytest.raises(NotImplementedError, match="grammar"):
+        build_fused_logits_topk(cfg, bk=5, k=6, grammar=True)
+    x, g, b, emb, sup = _head_inputs(dev, 5, 1000, seed=0)
+    before = fused_logits_topk.launches
+    for args, kw, match in (
+        ((x.bfloat16(), g, b, emb, sup), dict(k=6), "x must be f32"),
+        ((x, g, b, emb.float(), sup), dict(k=6), "emb must be bf16"),
+        ((x, g, b, emb, sup[:-1]), dict(k=6), "sup must be f32"),
+        ((x, g, b, emb, sup), dict(k=9), "k=9"),
+        ((torch.zeros((33, 128), device=dev), g, b, emb, sup), dict(k=6), "BK=33"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            fused_logits_topk(*args, **kw)
+    assert fused_logits_topk.launches == before

@@ -1,0 +1,130 @@
+"""The fused logits head of the PyTorch port (``wis_tpu_torch/ops/
+fused_logits.py``) held against wis_tpu's ``build_fused_logits_topk`` — the
+Pallas kernel in interpret mode under jit, as the JAX package runs it on
+the CPU — on the narrow config (D=128) with the real 51865-token
+vocabulary: bf16 and per-row int8 embedding, the logsumexp over the
+suppressed or the raw logits.
+
+Inputs are numpy-seeded: N(0, 1) embedding rows spread the logits (std
+~11), and the seed is one whose candidate gaps all clear twice the
+tolerance; each row's two largest raw logits are suppressed, and one id
+is given a lower-id twin (a duplicated embedding row) so that the two tie
+at the row's top.
+
+Tolerance on the candidates' values and on lse: 2e-2 absolute. Both sides
+take the same f32 LayerNorm and round it once to bf16, then dot bf16
+operands in f32 in another order (~1e-5 here); but an LN output that lands
+on a bf16 rounding boundary can round one ulp apart (the two rsqrt
+implementations differ in the last f32 bit), which moves a logit by at most
+2⁻⁸·|xn_i|·|e_i| (< 2e-2 at these magnitudes). Candidate ids must be equal,
+and the test asserts that the gaps between consecutive candidates stand
+above twice the tolerance, so equal ids are a real check.
+"""
+
+from functools import lru_cache
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_port_helpers import JAX_CFG, PORT_CFG
+from wis_tpu.ops import fused_logits as jl
+from wis_tpu.ops.quant import quantize_rows as jax_quantize_rows
+from wis_tpu_torch.ops import fused_logits as tl
+
+torch.set_num_threads(1)
+
+V, D = JAX_CFG.n_vocab, JAX_CFG.n_text_state
+BK = 5
+TOL = 2e-2
+
+
+@lru_cache(maxsize=None)
+def _inputs(seed=9):
+    """x, LN rows, the bf16 table (as the f32 values of its bf16 elements)
+    with its tie, the suppress row, the two tied ids (row 0's best and its
+    lower twin) and the suppressed raw top two. The seed is one whose
+    top-(k+1) gaps clear twice the tolerance in both tables."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((BK, D)) * 2 + 0.3).astype(np.float32)
+    g = (1 + 0.1 * rng.standard_normal(D)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(D)).astype(np.float32)
+    emb = torch.from_numpy(rng.standard_normal((V, D), dtype=np.float32))
+    emb = emb.to(torch.bfloat16).float().numpy()
+    sup = np.zeros(V, np.float32)
+    sup[rng.choice(V, 200, replace=False)] = -1e30
+    # trap: the two largest raw logits of every row are suppressed
+    raw = tl.fused_logits_topk_plain(*_port(x, g, b, emb, np.zeros_like(sup)), k=2)[1]
+    sup[raw.numpy().reshape(-1)] = -1e30
+    best = int(tl.fused_logits_topk_plain(*_port(x, g, b, emb, sup), k=1)[1][0, 0])
+    low = best // 2
+    while sup[low] != 0.0:
+        low -= 1
+    emb = emb.copy()
+    emb[low] = emb[best]  # trap: row 0's best id ties with a lower id
+    return x, g, b, emb, sup, (low, best), raw.numpy()
+
+
+def _port(x, g, b, emb, sup):
+    if isinstance(emb, dict):
+        t_emb = {"q": torch.from_numpy(np.asarray(emb["q"])),
+                 "s": torch.from_numpy(np.asarray(emb["s"]))}
+    else:
+        t_emb = torch.from_numpy(emb).to(torch.bfloat16)
+    return (torch.from_numpy(x), torch.from_numpy(g), torch.from_numpy(b), t_emb,
+            torch.from_numpy(sup))
+
+
+def _table(int8: bool):
+    emb = _inputs()[3]
+    if not int8:
+        return emb
+    return jax.tree.map(np.asarray, jax_quantize_rows(jnp.asarray(emb, jnp.bfloat16)))
+
+
+@pytest.mark.parametrize("k", [6, 1])
+@pytest.mark.parametrize("full_lse", [False, True])
+@pytest.mark.parametrize("int8", [False, True])
+def test_head_plain_matches_jax_kernel(int8, full_lse, k):
+    x, g, b, _, sup, (low, best), raw = _inputs()
+    table = _table(int8)
+    head = jl.build_fused_logits_topk(JAX_CFG, bk=BK, k=k, full_lse=full_lse, emb_int8=int8)
+    j_emb = {"q": jnp.asarray(table["q"]), "s": jnp.asarray(table["s"])} if int8 else (
+        jnp.asarray(table, jnp.bfloat16))
+    want = jax.jit(head)(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b), j_emb, jnp.asarray(sup))
+    want_val, want_tok, want_lse = (np.asarray(t) for t in want)
+
+    port = tl.build_fused_logits_topk(PORT_CFG, bk=BK, k=k, full_lse=full_lse, emb_int8=int8)
+    before = tl.fused_logits_topk.launches
+    got_val, got_tok, got_lse = (t.numpy() for t in port(*_port(x, g, b, table, sup)))
+    assert tl.fused_logits_topk.launches == before  # the CPU runs the plain version
+
+    assert got_val.shape == (BK, k) and got_tok.shape == (BK, k) and got_lse.shape == (BK, 1)
+    np.testing.assert_array_equal(got_tok, want_tok)
+    assert np.abs(got_val - want_val).max() <= TOL
+    assert np.abs(got_lse - want_lse).max() <= TOL
+    # the decisions stand clear of the tolerance (the tie aside)
+    wide = tl.fused_logits_topk_plain(*_port(x, g, b, table, sup), k=k + 1)[0].numpy()
+    gaps = (wide[:, :-1] - wide[:, 1:]).reshape(-1)
+    assert gaps[gaps > 0].min() > 2 * TOL
+    # the traps: the tie goes to the lower id, suppressed ids stay out
+    assert got_tok[0, 0] == low and (k == 1 or got_tok[0, 1] == best)
+    assert not np.isin(got_tok, raw).any()
+    # a logsumexp lies above the largest candidate
+    assert (got_lse > got_val[:, :1]).all()
+
+
+def test_head_refuses_what_it_does_not_take():
+    with pytest.raises(NotImplementedError, match="grammar"):
+        tl.build_fused_logits_topk(PORT_CFG, bk=BK, k=6, grammar=True)
+    with pytest.raises(ValueError, match="k=9"):
+        tl.build_fused_logits_topk(PORT_CFG, bk=BK, k=9)
+    x, g, b, emb, sup, _, _ = _inputs()
+    head = tl.build_fused_logits_topk(PORT_CFG, bk=BK, k=6, emb_int8=True)
+    with pytest.raises(ValueError, match="emb_int8"):
+        head(*_port(x, g, b, emb, sup))
+    meta = torch.empty((BK, D), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tl.fused_logits_topk(meta, meta[0], meta[0], meta, meta[0], k=6)

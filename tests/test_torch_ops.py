@@ -125,7 +125,7 @@ def test_qmatmul_matches(case):
     want = jax.jit(jax_qmatmul)(jx, jw)  # as the programs run it
     got = qmatmul(
         torch.from_numpy(x).to(getattr(torch, x_dtype)),
-        params_from_jax(jax.tree.map(np.asarray, jw)),
+        params_from_jax(jax.tree.map(np.asarray, jw), "cpu"),
     )
     assert str(got.dtype).removeprefix("torch.") == x_dtype
     if x_dtype == "float32":

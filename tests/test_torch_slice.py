@@ -171,11 +171,96 @@ def test_generate_with_midloop_finishes(beam, renorm, length_penalty):
 
 
 def test_timestamp_grammar_and_fused_paths_raise():
+    """What is not ported yet raises: the timestamp grammar and on-device
+    long-form windows (the fused step is ported and builds)."""
     kw = dict(beam_size=1, batch=1, max_new_tokens=4, prompt_len=4,
               suppress_tokens=(), begin_suppress_tokens=())
-    for extra in ({"with_timestamps": True}, {"fused_step": True}, {"chunked": True}):
+    for extra in ({"with_timestamps": True}, {"chunked": True}):
         with pytest.raises(NotImplementedError):
             build_asr_program(PORT_CFG, **kw, **extra)
+    assert callable(build_asr_program(PORT_CFG, **kw, fused_step=True))
+
+
+# --------------------------------------------------------------------------- #
+# The fused decode path: the port's plain step and head against the JAX
+# kernels in interpret mode, on bf16 trees (the JAX kernel's caches are
+# bf16). The vocabulary is narrowed to a few ids by the suppress mask, as
+# tests/test_fused_decode.py does, so each decision's margin stands far
+# above the bf16 rounding noise in which the two sides may differ.
+# --------------------------------------------------------------------------- #
+FUSED_ALLOWED = (100, 200, 300, 400, 500, 600, 700)
+FUSED_SUPPRESS = tuple(i for i in range(JAX_CFG.n_vocab) if i not in FUSED_ALLOWED)
+
+
+def _fused_trees(quant):
+    """(JAX tree, port tree, JAX packed decoder, port packed decoder)."""
+    import jax
+
+    from wis_tpu.ops.fused_decode import pack_decoder as jax_pack
+    from wis_tpu_torch.ops.fused_decode import pack_decoder
+
+    jp = jax_params(quant, seed=2, emb_scale=EMB_SCALE, dtype="bfloat16")
+    tp = port_params(quant, seed=2, emb_scale=EMB_SCALE, dtype="bfloat16")
+    return jp, tp, jax.jit(lambda p: jax_pack(p, JAX_CFG))(jp), pack_decoder(tp, PORT_CFG)
+
+
+@pytest.mark.parametrize(
+    "beam,batch,quant,xa_int8",
+    [(1, 1, True, True), (2, 2, True, True), (5, 1, True, False), (3, 1, False, False)],
+)
+def test_fused_generate_token_equal(beam, batch, quant, xa_int8):
+    """build_generate_xa(fused=True) equal to the JAX package's fused
+    generate: tokens, lengths and best exactly, scores to 1e-4 relative
+    (sums of the same log-probs in another order); greedy and beams, one
+    and two windows (block-diagonal cross-attention), int8 and bf16 heads,
+    int8 and bf16 cross-KV."""
+    from wis_tpu.decoding.beam import build_generate_xa as jax_generate
+
+    jp, tp, jpk, tpk = _fused_trees(quant)
+    rng = np.random.default_rng(beam + batch)
+    L, H = JAX_CFG.n_text_layer, JAX_CFG.n_text_head
+    shape = (L, batch, H, JAX_CFG.n_text_state // H, JAX_CFG.n_audio_ctx)
+    xa = [rng.standard_normal(shape).astype(np.float32) * 0.5 for _ in range(2)]
+    j_xa = tuple(jnp.asarray(a, jnp.bfloat16) for a in xa)
+    t_xa = tuple(torch.from_numpy(a).to(torch.bfloat16) for a in xa)
+    prompt = np.asarray([build_prompt("en"), build_prompt("de")][:batch], np.int32)
+    kw = dict(beam_size=beam, batch=batch, max_new_tokens=6, prompt_len=4,
+              suppress_tokens=FUSED_SUPPRESS, begin_suppress_tokens=(),
+              fused=True, xa_int8=xa_int8)
+    want = jax_generate(JAX_CFG, **kw)(jp, jpk, j_xa, jnp.asarray(prompt), jnp.int32(6))
+    with torch.inference_mode():
+        got = beam_mod.build_generate_xa(PORT_CFG, **kw)(
+            tp, tpk, t_xa, torch.from_numpy(prompt), 6
+        )
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))
+    np.testing.assert_array_equal(got.best.numpy(), np.asarray(want.best))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores), rtol=2.0 ** -7)
+    assert set(np.unique(got.tokens.numpy())) <= set(FUSED_ALLOWED) | {beam_mod.EOT}
+
+
+@pytest.mark.parametrize("beam,detect", [(5, True), (1, False)])
+def test_fused_asr_program_packed_equal(beam, detect):
+    """The fused ASR program (int8 weights and cross-KV, translate on, a
+    batch of two windows) packed int32 equal to wis_tpu's fused program."""
+    jp, tp, jpk, tpk = _fused_trees(True)
+    kw = dict(
+        beam_size=beam, batch=2, max_new_tokens=MAX_NEW, prompt_len=4,
+        suppress_tokens=FUSED_SUPPRESS, begin_suppress_tokens=DEFAULT_BEGIN_SUPPRESS,
+        detect_language=detect, translate=True, n_samples=N_SAMPLES,
+        fused_step=True, xa_int8=True,
+    )
+    audio = audio_i16(N_SAMPLES, seed=beam, batch=2)
+    ctl = _ctl(2, [1, 0])
+    want = np.asarray(
+        jax_program(JAX_CFG, **kw)(jp, jpk, jnp.asarray(audio), jnp.asarray(ctl))
+    )
+    got = build_asr_program(PORT_CFG, **kw)(
+        tp, tpk, torch.from_numpy(audio), torch.from_numpy(ctl)
+    )
+    assert got.dtype == torch.int32
+    assert got.shape == (2, 2 * packed_width(beam, MAX_NEW))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 # --------------------------------------------------------------------------- #
@@ -231,6 +316,79 @@ def test_transcribe_text_equal(engines, seconds, beam, detect, translate):
     assert got.audio_duration_ms == want.audio_duration_ms
     assert set(got.timings) >= {"features", "asr_dispatch", "decode_text"}
     assert {k[:6] for k in port._programs} <= {k[:6] for k in jax_engine._programs}
+
+
+@pytest.fixture(scope="module")
+def fused_engines():
+    """(JAX engine, port engine), both with ``fused_decode="on"`` (the JAX
+    kernels in interpret mode, the port's plain versions), int8 weights and
+    int8 cross-KV, sharing the bf16 tiny weights the JAX registry loaded."""
+    from wis_tpu.runtime import residency as jax_residency
+    from wis_tpu.runtime.engine import WhisperEngine as JaxEngine
+    from wis_tpu_torch.runtime.engine import WhisperEngine
+    from wis_tpu_torch.runtime.residency import ModelRegistry
+    from wis_tpu_torch.settings import APISettings
+
+    from torch_port_helpers import np_tree
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_residency, "hash", lambda s: 7, raising=False)
+        js = _jax_settings(dtype="bfloat16", fused_decode="on")
+        jax_engine = JaxEngine(jax_residency.ModelRegistry(js), js)
+        tree = np_tree(jax_engine.registry.get("tiny").params)
+    ps = APISettings(whisper_model_default="tiny", dtype="bfloat16", max_decode_tokens=8,
+                     beam_size=1, long_beam_size=5, fused_decode="on")
+    port = WhisperEngine(ModelRegistry(ps, "cpu", jax_trees={"tiny": tree}))
+    return jax_engine, port
+
+
+@pytest.mark.parametrize(
+    "seconds,beam,detect,seed",  # audio seeds that meet no near-tie
+    [(3.84, 5, True, 384), (1.0, 1, False, 1)],
+)
+def test_transcribe_fused_text_equal(fused_engines, seconds, beam, detect, seed):
+    """The port engine's fused path gives the JAX engine's fused text. The
+    tiny model's random logits are nearly uniform over the full
+    vocabulary, so a seed can meet a near-tie that the two sides' bf16
+    roundings resolve apart (2 of 12 greedy seeds tried did); the seeds
+    here meet none."""
+    jax_engine, port = fused_engines
+    audio = audio_i16(int(seconds * 16000), seed=seed)[0]
+    kw = dict(beam_size=beam, detect_language=detect, max_tokens=8)
+    want = jax_engine.transcribe(audio, **kw)
+    got = port.transcribe(audio, **kw)
+    assert got.text and got.text == want.text
+    assert got.language == want.language
+    assert port._use_fused(1, beam) and port._xa_int8()
+    fused_keys = [key for key in port._programs if key[1] == beam]
+    assert fused_keys and all(key[7] for key in fused_keys)  # (…, max_new, fused, n_samples)
+    assert port.registry.get("tiny").packed is not None
+
+
+def test_engine_picks_the_decode_path():
+    """fused_decode "auto" takes the fused path on a CUDA device only, "on"
+    anywhere, "off" never; beams above 7 never (the head's 8 slots), nor
+    batches of more rows than the kernels take."""
+    from wis_tpu_torch.runtime.engine import WhisperEngine
+    from wis_tpu_torch.runtime.residency import ModelRegistry
+    from wis_tpu_torch.settings import APISettings
+
+    eng = WhisperEngine(ModelRegistry(APISettings(), "cpu"))
+    assert not eng._use_fused(1, 5)  # "auto" on the CPU
+    eng.device = torch.device("cuda")  # the decision reads the device only
+    assert eng._use_fused(1, 5) and eng._use_fused(1, 1) and eng._use_fused(1, 7)
+    assert not eng._use_fused(1, 8)
+    assert eng._use_fused(4, 5) and not eng._use_fused(8, 5)  # 40 rows: more than the kernels take
+    eng.settings.fused_decode = "off"
+    assert not eng._use_fused(1, 5)
+    eng.settings.fused_decode = "on"
+    eng.device = torch.device("cpu")
+    assert eng._use_fused(2, 5)
+    assert eng._xa_int8()
+    eng.settings.xa_quant = "none"
+    assert not eng._xa_int8()
+    eng.settings.xa_quant, eng.settings.quant = "int8", "none"
+    assert not eng._xa_int8()
 
 
 def test_engine_rejects_what_is_not_ported(engines):

@@ -37,15 +37,16 @@ def np_tree(tree):
 
 
 @lru_cache(maxsize=None)
-def jax_params(quant: bool = False, seed: int = 0, emb_scale: float = 1.0):
-    """f32 JAX random weights for SMALL, optionally int8-quantized the way
+def jax_params(quant: bool = False, seed: int = 0, emb_scale: float = 1.0,
+               dtype: str = "float32"):
+    """JAX random weights for SMALL (f32, or ``dtype``), optionally int8-quantized the way
     production quantizes (decoder + tok_emb_q). emb_scale widens the
     token embedding: the random init's 1/sqrt(V) scale leaves the logits
     nearly uniform (std ~0.05), so token-exact tests spread them to keep
     every decision's margin far above the logits tolerance."""
     from wis_tpu.models.whisper.weights import random_params
 
-    params = random_params(JAX_CFG, seed=seed, dtype=jnp.float32)
+    params = random_params(JAX_CFG, seed=seed, dtype=getattr(jnp, dtype))
     if emb_scale != 1.0:
         dec = dict(params["decoder"], tok_emb=params["decoder"]["tok_emb"] * emb_scale)
         params = dict(params, decoder=dec)
@@ -56,9 +57,10 @@ def jax_params(quant: bool = False, seed: int = 0, emb_scale: float = 1.0):
     return params
 
 
-def port_params(quant: bool = False, seed: int = 0, emb_scale: float = 1.0):
+def port_params(quant: bool = False, seed: int = 0, emb_scale: float = 1.0,
+                dtype: str = "float32"):
     """The same weights, bridged to torch on the CPU."""
-    return params_from_jax(np_tree(jax_params(quant, seed, emb_scale)))
+    return params_from_jax(np_tree(jax_params(quant, seed, emb_scale, dtype)), "cpu")
 
 
 def to_np(x) -> np.ndarray:

@@ -1,0 +1,60 @@
+// Device helpers shared by the kernels in this directory.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace wis {
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// 8 bf16 in 16 bytes → 8 floats (element 0 in the low half of word 0).
+__device__ __forceinline__ void bf16x8_to_float(uint4 v, float* f) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// 4 int8 in one 32-bit word → 4 exact floats (byte 0 first): the byte,
+// biased to unsigned, becomes the low mantissa byte of 2^23, and one
+// subtract removes 2^23 and the bias.
+__device__ __forceinline__ void int8x4_to_float(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) - 8388736.f;
+}
+
+// LayerNorm of one f32 row by one warp: mean, mean squared deviation,
+// eps 1e-5, affine; rounded once to bf16 and stored with stride `step`.
+__device__ __forceinline__ void ln_row_bf16(const float* __restrict__ xr, const float* __restrict__ g,
+                                            const float* __restrict__ b, int d,
+                                            __nv_bfloat16* dst, int step, int lane) {
+  float s = 0.f;
+  for (int c = lane; c < d; c += 32) s += xr[c];
+  const float mean = warp_sum(s) / d;
+  float ss = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float t = xr[c] - mean;
+    ss += t * t;
+  }
+  const float rstd = rsqrtf(warp_sum(ss) / d + 1e-5f);
+  for (int c = lane; c < d; c += 32)
+    dst[static_cast<size_t>(c) * step] = __float2bfloat16_rn((xr[c] - mean) * rstd * g[c] + b[c]);
+}
+
+}  // namespace wis

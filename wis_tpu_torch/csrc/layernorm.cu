@@ -20,15 +20,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+using wis::warp_sum;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+constexpr int kWarpsPerBlock = 4;
 
 template <typename T>
 struct Vec;

@@ -1,5 +1,6 @@
-"""KV-cached greedy / beam-search decoding (port of the non-fused branch of
-``wis_tpu/decoding/beam.py`` ``build_generate_xa``, ancestry mode).
+"""KV-cached greedy / beam-search decoding (port of
+``wis_tpu/decoding/beam.py`` ``build_generate_xa``: the ancestry branch and
+the fused branch).
 
 Semantics are the JAX package's, step for step (its module docstring
 describes them): per-beam top-(K+1) candidates, a global 2K pool, running
@@ -11,6 +12,9 @@ both orders. Beams never permute the KV cache: the (B, K, T) ancestry map
 names each logical beam's physical row per position (``model.py``).
 
 The loop runs eagerly, one host check of the exit condition per token.
+``fused=True`` runs each token through the fused decode step and the fused
+head (``ops/fused_decode``, ``ops/fused_logits``) on the kernels' layouts,
+as the JAX package's fused branch does.
 ``jax.lax.top_k`` breaks ties toward the lower index and ``torch.topk``
 promises no order, so every top-k here is a stable descending sort.
 The timestamp grammar is not ported yet: ``with_timestamps=True`` raises.
@@ -22,11 +26,14 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from wis_tpu_torch.models.whisper.config import WhisperConfig
 from wis_tpu_torch.models.whisper.model import DecoderCache, decode_step, prefill
 from wis_tpu_torch.models.whisper.tokenizer import EOT
 from wis_tpu_torch.ops.attention import NEG_INF
+from wis_tpu_torch.ops.fused_decode import build_fused_decode_step, quantize_xa_columns
+from wis_tpu_torch.ops.fused_logits import build_fused_logits_topk
 
 #: HF beam search's "effectively -inf" gating constant
 GATE = -1.0e9
@@ -63,6 +70,8 @@ def build_generate_xa(
     begin_suppress_tokens: Tuple[int, ...],
     length_penalty: float = 1.0,
     with_timestamps: bool = False,
+    fused: bool = False,
+    xa_int8: bool = False,
     renorm_suppressed: bool = True,
     eot_id: Optional[int] = None,
 ):
@@ -72,7 +81,17 @@ def build_generate_xa(
     prompt: (prompt_len,) shared or (batch, prompt_len) per sequence;
     token_cap: runtime cap ≤ max_new_tokens (int or 0-d tensor).
     renorm_suppressed=False normalizes over the full distribution before
-    masking (HF order); eot_id overrides the EOT id."""
+    masking (HF order); eot_id overrides the EOT id.
+
+    fused=True: generate(params, packed, xa_kv, prompt, token_cap), with
+    ``packed = ops.fused_decode.pack_decoder(params, cfg)``. Each token runs
+    the fused step over the kernel layouts — caches (L, D, T·BK) flat
+    time-major with T rounded up to a multiple of 128 (the prefill still
+    runs the eager decoder and its cache is flattened once), cross-KV
+    (L, H, Dh, B·S_pad) with each window zero-padded — and then the fused
+    head, int8 when the tree carries ``tok_emb_q``. xa_int8 (fused only)
+    quantizes the flattened cross-KV per column once before the loop
+    (``quantize_xa_columns``)."""
     if with_timestamps:
         raise NotImplementedError(
             "the timestamp grammar is not ported to wis_tpu_torch yet"
@@ -83,6 +102,19 @@ def build_generate_xa(
     KC = 1 if K == 1 else K + 1  # per-beam candidates (K non-EOT + EOT)
     POOL = 2 * K
     cache_len = prompt_len + max_new_tokens
+    if fused:
+        # the kernels' flat (time, beam) axis, as in the JAX package
+        cache_len = ((cache_len + 127) // 128) * 128
+        step_fn = build_fused_decode_step(
+            cfg, bk=BK, t_cache=cache_len, s_audio=cfg.n_audio_ctx,
+            n_seq=B, xa_int8=xa_int8,
+        )
+        head_kw = dict(bk=BK, k=KC, full_lse=not renorm_suppressed)
+        head_fn = build_fused_logits_topk(cfg, **head_kw)
+        head_fn_q = build_fused_logits_topk(cfg, emb_int8=True, **head_kw)
+        H, L = cfg.n_text_head, cfg.n_text_layer
+        Dh = cfg.n_text_state // H
+        s_pad = ((cfg.n_audio_ctx + 127) // 128) * 128
     sup_np = _suppress_mask(cfg.n_vocab, tuple(suppress_tokens))
     begin_np = _suppress_mask(
         cfg.n_vocab, tuple(begin_suppress_tokens) + tuple(suppress_tokens)
@@ -93,7 +125,7 @@ def build_generate_xa(
         n = torch.as_tensor(n, dtype=torch.float32)
         return n if length_penalty == 1.0 else n ** length_penalty
 
-    def generate(params, xa_kv, prompt, token_cap) -> GenerateResult:
+    def _generate(params, packed, xa_kv, prompt, token_cap) -> GenerateResult:
         device = xa_kv[0].device
         dtype = params["decoder"]["tok_emb"].dtype
         sup = torch.from_numpy(sup_np).to(device)
@@ -112,11 +144,31 @@ def build_generate_xa(
         )
         first_lp = first_masked - first_lse
 
-        cache = DecoderCache(
-            cache0.k.repeat_interleave(K, dim=1),
-            cache0.v.repeat_interleave(K, dim=1),
-            cache0.pos,
-        )
+        if fused:
+            # flat time-major (L, D, T·B·K): column (t·B + b)·K + k, so each
+            # position's BK rows are one contiguous block
+            def flat_tmajor(c):  # (L, B, H, Dh, T)
+                flat = c.reshape(L, B, H * Dh, cache_len).permute(0, 2, 3, 1)
+                return flat.reshape(L, H * Dh, cache_len * B).repeat_interleave(K, dim=-1)
+
+            cache = DecoderCache(flat_tmajor(cache0.k), flat_tmajor(cache0.v), cache0.pos)
+
+            def flat_xa(xa):  # (L, B, H, Dh, S) → (L, H, Dh, B·S_pad)
+                t = F.pad(xa.permute(0, 2, 3, 1, 4), (0, s_pad - cfg.n_audio_ctx))
+                return t.reshape(L, H, Dh, B * s_pad)
+
+            xa_k_f, xa_v_f = flat_xa(xa_kv[0]), flat_xa(xa_kv[1])
+            xa_s_f = None
+            if xa_int8:
+                xa_k_f, xa_v_f, xa_s_f = quantize_xa_columns(xa_k_f, xa_v_f)
+            boff = (torch.arange(B, device=device) * K)[:, None, None]
+            bk_rows = torch.arange(BK, device=device)
+        else:
+            cache = DecoderCache(
+                cache0.k.repeat_interleave(K, dim=1),
+                cache0.v.repeat_interleave(K, dim=1),
+                cache0.pos,
+            )
         # ancestry: prompt positions live in each beam's own (replicated)
         # row; unwritten positions are -1 (masked)
         own_row = torch.arange(K, device=device)[None, :, None].expand(B, K, cache_len)
@@ -127,10 +179,35 @@ def build_generate_xa(
         )
         beam_rows = torch.arange(K, device=device)
 
+        def run_fused_step(tokens, cache, anc):
+            # sel from the PRE-update ancestry: the current position is
+            # still -1 and selects nothing; the step's own K/V join through
+            # the kernel's self column. Offsetting by b·K keeps each beam
+            # inside its own sequence's rows.
+            ganc = torch.where(anc >= 0, anc + boff, -1).reshape(BK, cache_len)
+            sel = (ganc[..., None] == bk_rows).float().reshape(BK, cache_len * BK)
+            dec = params["decoder"]
+            x_emb = (
+                dec["tok_emb"][tokens.reshape(BK)].float()
+                + dec["pos"][cache.pos].float()[None]
+            )
+            xa = (xa_k_f, xa_v_f) + ((xa_s_f,) if xa_int8 else ())
+            x_out, kc, vc = step_fn(packed, x_emb, cache.k, cache.v, *xa, sel, cache.pos)
+            anc = anc.clone()
+            anc[:, :, cache.pos] = beam_rows
+            if "tok_emb_q" in dec:
+                head, emb = head_fn_q, dec["tok_emb_q"]
+            else:
+                head, emb = head_fn, dec["tok_emb"]
+            cand_val, cand_tok, lse = head(x_out, dec["ln"]["g"], dec["ln"]["b"], emb, sup)
+            return cand_val, cand_tok, lse, DecoderCache(kc, vc, cache.pos + 1), anc
+
         def run_step(tokens, cache, anc):
             """Decoder step for the running beams' last tokens →
             (cand_val (BK, KC), cand_tok (BK, KC), lse (BK, 1), cache,
             anc with the current position marked as each beam's own row)."""
+            if fused:
+                return run_fused_step(tokens, cache, anc)
             anc = anc.clone()
             anc[:, :, cache.pos] = beam_rows
             logits, cache = decode_step(
@@ -146,6 +223,13 @@ def build_generate_xa(
         if K == 1:
             return _greedy(first_lp, cache, anc, run_step, cap_eff, device)
         return _beam(first_lp, cache, anc, run_step, cap_eff, device)
+
+    if fused:
+        def generate(params, packed, xa_kv, prompt, token_cap) -> GenerateResult:
+            return _generate(params, packed, xa_kv, prompt, token_cap)
+    else:
+        def generate(params, xa_kv, prompt, token_cap) -> GenerateResult:
+            return _generate(params, None, xa_kv, prompt, token_cap)
 
     # ------------------------------------------------------------------
     # Greedy (K == 1): argmax each step, stop at the first EOT

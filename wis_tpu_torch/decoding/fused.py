@@ -11,9 +11,11 @@ translate=True. ``ctl`` packs prompt ‖ detect_mask ‖ token_cap
 (``pack_ctl``). ``pack_ctl``/``unpack_asr_result``/``packed_width`` are
 copies of the JAX package's host-side helpers.
 
-The program runs eagerly on the device of its inputs. Not ported yet:
-the fused decode step (``fused_step=True``), on-device long-form windows
-(``chunked=True``) and the timestamp grammar — each raises.
+The program runs eagerly on the device of its inputs. ``fused_step=True``
+decodes through the fused step and head (``decoding/beam.py``'s fused
+branch); the program then takes the packed decoder right after ``params``.
+Not ported yet: on-device long-form windows (``chunked=True``) and the
+timestamp grammar — each raises.
 """
 
 from __future__ import annotations
@@ -45,13 +47,14 @@ def build_asr_program(
     translate: bool = False,
     with_timestamps: bool = False,
     fused_step: bool = False,
+    xa_int8: bool = False,
     n_samples: int = N_SAMPLES,
     chunked: bool = False,
 ):
     """Return asr(params, audio_i16 (B, n_samples), ctl (B, P+2)) → packed
-    int32 (B, W) on the inputs' device."""
-    if fused_step:
-        raise NotImplementedError("the fused decode step is not ported yet")
+    int32 (B, W) on the inputs' device; with fused_step,
+    asr(params, packed_dec, audio_i16, ctl). xa_int8 streams the cross-KV
+    as per-column int8 inside the fused step."""
     if chunked:
         raise NotImplementedError("on-device long-form windows are not ported yet")
     translate_tok = layout_for_vocab(cfg.n_vocab).translate
@@ -65,10 +68,12 @@ def build_asr_program(
         suppress_tokens=suppress_tokens,
         begin_suppress_tokens=begin_suppress_tokens,
         with_timestamps=with_timestamps,
+        fused=fused_step,
+        xa_int8=fused_step and xa_int8,
     )
 
     @torch.inference_mode()
-    def asr(params, audio_i16: torch.Tensor, ctl: torch.Tensor) -> torch.Tensor:
+    def _asr(params, packed_dec, audio_i16: torch.Tensor, ctl: torch.Tensor) -> torch.Tensor:
         device = audio_i16.device
         prompt = ctl[:, :prompt_len].long()
         detect_mask = ctl[:, prompt_len]
@@ -103,13 +108,24 @@ def build_asr_program(
                 dim=1,
             )
 
-        packed = pack(gen(params, xa_kv, prompt, token_cap))
+        def run(p):
+            if fused_step:
+                return gen(params, packed_dec, xa_kv, p, token_cap)
+            return gen(params, xa_kv, p, token_cap)
+
+        packed = pack(run(prompt))
         if translate:
             tr_prompt = prompt.clone()
             tr_prompt[:, 2] = translate_tok
-            packed = torch.cat([packed, pack(gen(params, xa_kv, tr_prompt, token_cap))], dim=1)
+            packed = torch.cat([packed, pack(run(tr_prompt))], dim=1)
         return packed
 
+    if fused_step:
+        def asr(params, packed_dec, audio_i16, ctl):
+            return _asr(params, packed_dec, audio_i16, ctl)
+    else:
+        def asr(params, audio_i16, ctl):
+            return _asr(params, None, audio_i16, ctl)
     return asr
 
 

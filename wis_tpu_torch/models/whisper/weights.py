@@ -5,7 +5,7 @@ The tree keeps the JAX package's layout (stacked layers with a leading
 layer axis, (in, out) matmul weights, int8 leaves as ``{"q", "s"}``; see
 ``model.py``). Two sources:
 
-- ``params_from_jax(tree)`` bridges a tree the JAX package built, given
+- ``params_from_jax(tree, device)`` bridges a tree the JAX package built, given
   as numpy arrays (``np.asarray`` of each leaf). Every leaf is taken as it
   is — bf16 bit patterns, int8 ``{q, s}`` leaves and ``tok_emb_q``
   included — never re-quantized or re-rounded.
@@ -47,7 +47,7 @@ def _leaf_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_jax(tree: Dict, device: DeviceLike = "cpu") -> Dict:
+def params_from_jax(tree: Dict, device: DeviceLike) -> Dict:
     """A JAX-layout parameter tree of numpy arrays → the same tree of
     torch tensors on ``device``, leaf for leaf."""
     if isinstance(tree, dict):

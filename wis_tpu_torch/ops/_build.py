@@ -1,10 +1,12 @@
 """Build and load the hand-written Hopper kernels (``wis_tpu_torch/csrc``).
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, loaded with ctypes. The build runs at first use, on the
+``nvcc`` compiles every ``csrc/*.cu`` (one process per source, in
+parallel) and links them into one shared library with a plain C
+interface, loaded with ctypes. The build runs at first use, on the
 machine with the card, into ``build/wis_tpu_torch/<hash>/`` beside the
-package (listed in ``.gitignore``), keyed by a hash of the sources and the
-flags, so a changed source rebuilds and an unchanged one is reused.
+package (listed in ``.gitignore``), keyed by a hash of the sources, the
+headers they share (``csrc/*.cuh``) and the flags, so a changed source
+rebuilds and an unchanged one is reused.
 Nothing is built or imported when a module is imported.
 """
 
@@ -22,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "wis_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -39,27 +41,41 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # sources and the headers they include
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / "libwis_kernels.so"
 
 
+def _run(procs) -> None:
+    """Wait for every (command, Popen); raise with the first failure's
+    output."""
+    failed = None
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stdout}\n{stderr}"
+    if failed:
+        raise RuntimeError(failed)
+
+
 def _compile(out: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            objs.append(obj)
+        _run(procs)
+        lib = os.path.join(tmpdir, "lib.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+        os.replace(lib, out)
 
 
 def kernels() -> ctypes.CDLL:
@@ -73,10 +89,19 @@ def kernels() -> ctypes.CDLL:
                 _compile(path)
             lib = ctypes.CDLL(str(path))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            ll = ctypes.c_longlong
             lib.wis_layer_norm.argtypes = [p, p, p, p, i, i, f, i, p]
             lib.wis_layer_norm.restype = i
             lib.wis_flash_attention_packed.argtypes = [p, p, p, p, i, i, i, i, f, p]
             lib.wis_flash_attention_packed.restype = i
+            lib.wis_fused_decode_workspace_bytes.argtypes = [i, i]
+            lib.wis_fused_decode_workspace_bytes.restype = ll
+            lib.wis_fused_decode_step.argtypes = [p] * 11 + [i, p] + [i] * 8 + [p]
+            lib.wis_fused_decode_step.restype = i
+            lib.wis_fused_logits_workspace_bytes.argtypes = [i, i, i]
+            lib.wis_fused_logits_workspace_bytes.restype = ll
+            lib.wis_fused_logits_topk.argtypes = [p] * 5 + [i] * 6 + [p] * 5
+            lib.wis_fused_logits_topk.restype = i
             _lib = lib
         return _lib
 

@@ -7,7 +7,13 @@ override, optional language detection and translate, the same batch,
 audio-length, decode-length and beam buckets, and the same
 ``TranscriptionResult``. Each request is one ASR program call
 (``decoding/fused.py``) on the registry's device: one int16 audio
-transfer in, one packed int32 fetch out.
+transfer in, one packed int32 fetch out. ``settings.fused_decode`` picks
+the decode path as the JAX engine does: "auto" runs the fused decode step
+and head on a CUDA device (the JAX engine: on a TPU) and the eager
+decoder elsewhere, "on" runs them anywhere (the CPU takes their plain
+versions), "off" never; beams above 7 always take the eager decoder.
+``settings.xa_quant`` = "int8" with int8 weights streams the cross-KV as
+per-column int8 inside the fused step.
 
 It exposes ``.registry`` and ``._programs`` like the JAX engine, so
 ``wis_tpu.server.app.create_app(settings, engine=...)`` can serve
@@ -42,6 +48,8 @@ from wis_tpu_torch.decoding.fused import (
 )
 from wis_tpu_torch.languages import to_language_code
 from wis_tpu_torch.models.whisper.tokenizer import build_prompt
+from wis_tpu_torch.ops.fused_decode import MAX_ROWS as FUSED_MAX_ROWS
+from wis_tpu_torch.ops.fused_decode import pack_decoder
 from wis_tpu_torch.runtime.residency import LoadedModel, ModelRegistry
 from wis_tpu_torch.utils.timing import StageTimer
 
@@ -87,16 +95,46 @@ class WhisperEngine:
     # ------------------------------------------------------------------ #
     # Program cache and buckets
     # ------------------------------------------------------------------ #
+    def _use_fused(self, batch: int, beam: int = 1) -> bool:
+        """The fused decode step and head: "off" never; beams above 7
+        never (the head keeps beam + 1 candidates in 8 slots), nor more
+        rows than the kernels take (the port's counterpart of the JAX
+        engine's VMEM gate); "on" anywhere; "auto" on a CUDA device."""
+        if (beam + 1 > 8 and beam != 1) or batch * beam > FUSED_MAX_ROWS:
+            return False
+        mode = self.settings.fused_decode
+        if mode == "off":
+            return False
+        if mode == "on":
+            return True
+        return self.device.type == "cuda"
+
+    def _xa_int8(self) -> bool:
+        """Per-column int8 cross-KV inside the fused step: only alongside
+        int8 weights, as in the JAX engine."""
+        return self.settings.xa_quant == "int8" and self.settings.quant in ("int8", "int4")
+
+    def _packed_decoder(self, model: LoadedModel):
+        """The fused step's decoder weights, repacked once per model on its
+        device (the eager paths — prefill, encoder, detect — still read the
+        original tree)."""
+        if model.packed is None:
+            model.packed = pack_decoder(model.params, model.cfg)
+        return model.packed
+
     def _program(self, model: LoadedModel, *, beam: int, batch: int,
                  prompt_len: int, detect: bool, translate: bool,
                  max_new: int, n_samples: int):
+        """→ (program, fused): a fused program takes the packed decoder
+        right after params."""
+        fused = self._use_fused(batch, beam)
         key = (model.name, beam, batch, prompt_len, detect, translate,
-               max_new, n_samples)
+               max_new, fused, n_samples)
         with self._programs_lock:
             prog = self._programs.get(key)
             if prog is not None:
                 self._programs.move_to_end(key)
-                return prog
+                return prog, fused
             tok = model.tokenizer
             prog = build_asr_program(
                 model.cfg,
@@ -108,13 +146,15 @@ class WhisperEngine:
                 begin_suppress_tokens=tok.begin_suppress_tokens,
                 detect_language=detect,
                 translate=translate,
+                fused_step=fused,
+                xa_int8=self._xa_int8(),
                 n_samples=n_samples,
             )
             self._programs[key] = prog
             cap = max(1, int(self.settings.compile_cache_max))
             while len(self._programs) > cap:
                 self._programs.popitem(last=False)
-            return prog
+            return prog, fused
 
     def _bucket(self, n: int) -> int:
         for b in self.settings.batch_bucket_list():
@@ -186,16 +226,17 @@ class WhisperEngine:
         prompts = np.tile(prompt[None], (bucket, 1))
         mask = np.zeros(bucket, np.int32)
         mask[0] = 1
-        prog = self._program(
+        prog, fused = self._program(
             loaded, beam=beam, batch=bucket, prompt_len=prompt.shape[0],
             detect=detect, translate=translate, max_new=max_new,
             n_samples=n_samp,
         )
         ctl = pack_ctl(prompts, mask, token_cap)
+        weights = (loaded.params, self._packed_decoder(loaded)) if fused else (loaded.params,)
         with timer.span("asr_dispatch", trace=True):
             d_audio = torch.from_numpy(audio).to(self.device)
             d_ctl = torch.from_numpy(ctl).to(self.device)
-            packed = prog(loaded.params, d_audio, d_ctl).cpu().numpy()
+            packed = prog(*weights, d_audio, d_ctl).cpu().numpy()
         width = packed_width(beam, max_new)
         tokens, lengths, best, lang_idx, lang_prob = unpack_asr_result(
             packed[:, :width], beam, max_new

@@ -35,6 +35,7 @@ from wis_tpu_torch.models.whisper.config import (
 )
 from wis_tpu_torch.models.whisper.tokenizer import WhisperTokenizer, layout_for_vocab
 from wis_tpu_torch.models.whisper.weights import params_from_jax, random_params
+from wis_tpu_torch.ops.fused_decode import PackedDecoder
 from wis_tpu_torch.settings import APISettings
 
 logger = logging.getLogger("wis_tpu_torch")
@@ -58,6 +59,9 @@ class LoadedModel:
     params: Dict
     tokenizer: WhisperTokenizer
     param_bytes: int
+    #: the fused step's repacked decoder weights, filled on first use by
+    #: the engine (``WhisperEngine._packed_decoder``)
+    packed: Optional[PackedDecoder] = None
 
 
 class ModelRegistry:

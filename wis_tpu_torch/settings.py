@@ -41,6 +41,15 @@ class APISettings:
     #: per-output-channel symmetric, plus the per-row int8 logits
     #: embedding — ops/quant.py); "int4" aliases "int8"
     quant: str = "int8"
+    #: cross-attention K/V inside the fused decode step: "int8" (per
+    #: audio-position int8 with bf16 scales, applied outside the
+    #: contraction; ops/fused_decode.quantize_xa_columns) | "none". Only
+    #: active when ``quant`` is int8 and the fused path runs.
+    xa_quant: str = "int8"
+    #: the fused decode path (ops/fused_decode + ops/fused_logits):
+    #: "auto" (on a CUDA device) | "on" (anywhere — the CPU runs the
+    #: plain versions) | "off" (the eager per-layer decoder)
+    fused_decode: str = "auto"
     #: batch-size buckets requests are padded up to
     batch_buckets: List[str] = field(default_factory=lambda: ["1", "2", "4"])
     #: beam-size buckets: requested beams round UP; larger ones are refused
