@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where a large-v2 beam-5 int8 request's time goes in the PyTorch/CUDA port
-(``wis_tpu_torch``), on one NVIDIA GPU.
+"""Where a large-v2 beam-5 int8 request's time, and an XTTS stream's, goes
+in the PyTorch/CUDA port (``wis_tpu_torch``), on one NVIDIA GPU.
 
 Run from the repository root, with one card visible:
 
@@ -21,7 +21,14 @@ Prints, each on its own line, with the card's name and power limit first:
    and the device's busy share two ways — the union of kernel intervals
    over the profiled ``asr_dispatch`` span, and summed kernel time over the
    unprofiled request's median latency (the profiler slows the host, so
-   the first understates the share).
+   the first understates the share);
+3. XTTS v2 at full width (``chip_smoke.py``'s seeded model and 605-token
+   stream): the prefill, one 20-token chunk of the fused decode (plain
+   epilogue and fused head) and one vocoder call, timed like the phases
+   above; then for the default path and the fused head, unprofiled
+   stream times (first chunk and total, medians of 3) and one stream
+   under ``torch.profiler`` (launches, summed kernel time, busy share of
+   the profiled stream and of the unprofiled median).
 
 Each path's operator table by device time goes to
 ``<out>/profile_ops_<path>.txt``. The last line is one JSON object with
@@ -39,7 +46,7 @@ import sys
 import tempfile
 import time
 
-from chip_smoke import REQUESTS, _audio_i16, _step_inputs
+from chip_smoke import REQUESTS, TTS_CHUNK, TTS_MIN_TOKENS, TTS_TEXT, _audio_i16, _step_inputs
 
 #: settings.fused_decode for each decode path
 PATHS = {"eager": "off", "fused": "auto"}
@@ -149,14 +156,11 @@ def _union_us(intervals):
     return total
 
 
-def profiled_request(torch, engine, out_dir, unprofiled_ms, tag):
-    from torch.profiler import ProfilerActivity, profile
-
-    ms, cap = REQUESTS[0]
-    audio = _audio_i16(ms, 0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res = engine.transcribe(audio, beam_size=5, max_tokens=cap)
-    torch.cuda.synchronize()
+def _trace_stats(prof, span, out_dir, tag, unprofiled_ms, unit):
+    """Kernel launches, summed kernel time and the busy shares of the
+    annotated ``span`` in a profile (keys ``busy_share_of_profiled_<what>``
+    and ``busy_share_of_unprofiled_<of>`` for ``unit`` = (what, of)); the
+    ops table to ``out_dir``."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -168,11 +172,11 @@ def profiled_request(torch, engine, out_dir, unprofiled_ms, tag):
     ]
     spans = [
         (e["ts"], e["ts"] + e["dur"]) for e in events
-        if e.get("name") == "asr_dispatch" and e.get("ph") == "X"
+        if e.get("name") == span and e.get("ph") == "X"
         and e.get("cat") in ("user_annotation", "cpu_op")
     ]
     if not kernels or not spans:
-        raise RuntimeError(f"trace holds {len(kernels)} kernels, {len(spans)} dispatch spans")
+        raise RuntimeError(f"trace holds {len(kernels)} kernels, {len(spans)} {span} spans")
     a, b = min(s[0] for s in spans), max(s[1] for s in spans)
     inside = [(max(x, a), min(y, b)) for x, y in kernels if y > a and x < b]
     kernel_ms = sum(y - x for x, y in kernels) / 1000.0
@@ -181,13 +185,102 @@ def profiled_request(torch, engine, out_dir, unprofiled_ms, tag):
     with open(os.path.join(out_dir, f"profile_ops_{tag}.txt"), "w") as f:
         f.write(table)
     return {
-        "profiled_request_infer_ms": res.infer_time_ms,
-        "profiled_asr_dispatch_ms": (b - a) / 1000.0,
+        f"profiled_{span}_ms": (b - a) / 1000.0,
         "kernel_launches": len(kernels),
         "kernel_ms_sum": kernel_ms,
-        "busy_share_of_profiled_dispatch": _union_us(inside) / (b - a),
-        "busy_share_of_unprofiled_request": kernel_ms / unprofiled_ms,
+        f"busy_share_of_profiled_{unit[0]}": _union_us(inside) / (b - a),
+        f"busy_share_of_unprofiled_{unit[1]}": kernel_ms / unprofiled_ms,
     }
+
+
+def profiled_request(torch, engine, out_dir, unprofiled_ms, tag):
+    from torch.profiler import ProfilerActivity, profile
+
+    ms, cap = REQUESTS[0]
+    audio = _audio_i16(ms, 0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = engine.transcribe(audio, beam_size=5, max_tokens=cap)
+    torch.cuda.synchronize()
+    return {"profiled_request_infer_ms": res.infer_time_ms,
+            **_trace_stats(prof, "asr_dispatch", out_dir, tag, unprofiled_ms,
+                           ("dispatch", "request"))}
+
+
+def _stream(torch, model):
+    """TTS_TEXT streamed as chip_smoke.py streams it → (first chunk ms,
+    total ms), the total after a device sync."""
+    cfg = model.cfg
+    voice = [[0.0] * cfg.gpt.d_model] * cfg.cond_len
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = None
+    for _ in model.inference_stream(TTS_TEXT, "en", voice, [0.0] * cfg.vocoder.cond_dim,
+                                    stream_chunk_size=TTS_CHUNK,
+                                    min_audio_tokens=TTS_MIN_TOKENS):
+        first = first or (time.perf_counter() - t0) * 1000.0
+    torch.cuda.synchronize()
+    return first, (time.perf_counter() - t0) * 1000.0
+
+
+def xtts_phase_times(torch, model):
+    """The stream's parts at its shapes: the prefill of TTS_TEXT's prefix,
+    one 20-token chunk of the fused decode from the prefix (512-column
+    cache; plain epilogue, then the fused head) and one vocoder call on
+    22 latents (2 of left context + 20)."""
+    from wis_tpu_torch.models.xtts.gpt import (
+        build_prefill,
+        flatten_gpt_cache,
+        run_decode_chunk_fused,
+    )
+    from wis_tpu_torch.models.xtts.hifigan import hifigan_forward
+    from wis_tpu_torch.ops.fused_gpt import build_fused_gpt_step
+    from wis_tpu_torch.ops.fused_gpt_head import build_fused_gpt_head
+
+    cfg, g, dev = model.cfg, model.cfg.gpt, model.device
+    ids = model.tokenize(TTS_TEXT, "en")
+    bucket = model._text_bucket(len(ids))
+    text = torch.zeros((1, bucket), dtype=torch.long, device=dev)
+    text[0, : len(ids)] = torch.from_numpy(ids).to(dev)
+    cond = torch.zeros((1, cfg.cond_len, g.d_model), dtype=model.dtype, device=dev)
+    prefill = build_prefill(g, 1, cfg.cond_len, bucket,
+                            cfg.cond_len + bucket + 1 + g.max_audio_tokens)
+    out = {"xtts_prefill_ms": _median_s(torch, lambda: prefill(model.gpt_params, cond, text), 3)}
+    _, cache = prefill(model.gpt_params, cond, text)
+    kc, vc = flatten_gpt_cache(cache, 512)
+    step = build_fused_gpt_step(g, bk=1, t_cache=512)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gum = model._gumbel(gen, TTS_CHUNK)
+    start = torch.full((1,), g.start_audio_token, dtype=torch.long, device=dev)
+    history = torch.zeros((1, g.max_audio_tokens), dtype=torch.long, device=dev)
+    for name, head in (("xtts_chunk20_ms", None),
+                       ("xtts_chunk20_fused_head_ms", build_fused_gpt_head(g, dtype=model.dtype))):
+        out[name] = _median_s(torch, lambda: run_decode_chunk_fused(
+            model.gpt_params, model.gpt_packed, step, start, kc.clone(), vc.clone(), cache.pos,
+            history.clone(), 0, gum, 0.1, 50, 0.8, 7.0, True, TTS_MIN_TOKENS,
+            head_packed=model.gpt_head_packed, cfg=g, chunk=TTS_CHUNK, batch=1, head_fn=head), 3)
+    lat = torch.randn((1, 22, g.d_model), generator=gen, device=dev).to(model.dtype)
+    spk = torch.zeros((1, cfg.vocoder.cond_dim), dtype=model.dtype, device=dev)
+    out["xtts_vocoder_22_latents_ms"] = _median_s(
+        torch, lambda: hifigan_forward(model.vocoder_params, lat, spk, cfg.vocoder), 5)
+    return out
+
+
+def xtts_stream_profile(torch, model, out_dir, tag, reps=3):
+    """Unprofiled stream times (medians of ``reps``), then one profiled
+    stream's launches, kernel time and busy shares."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    runs = [_stream(torch, model) for _ in range(reps)]
+    out = {"stream_first_chunk_ms": statistics.median(r[0] for r in runs),
+           "stream_total_ms": statistics.median(r[1] for r in runs),
+           "stream_total_ms_all": [r[1] for r in runs]}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("xtts_stream"):
+            _stream(torch, model)
+    torch.cuda.synchronize()
+    out.update(_trace_stats(prof, "xtts_stream", out_dir, tag, out["stream_total_ms"],
+                            ("stream", "stream")))
+    return out
 
 
 def main() -> int:
@@ -230,6 +323,16 @@ def main() -> int:
         report(profiled_request(torch, engine, args.out,
                                 latency[f"request_{ms}ms_cap{cap}_infer_ms"], path),
                f"{path}_")
+    del engine, loaded
+
+    from wis_tpu_torch.models.xtts.model import XTTSModel
+
+    xtts = XTTSModel("cuda")
+    _stream(torch, xtts)  # warm-up
+    report(xtts_phase_times(torch, xtts))
+    for path, head in (("xtts_default", False), ("xtts_fused_head", True)):
+        xtts.fused_head = head
+        report(xtts_stream_profile(torch, xtts, args.out, path), f"{path}_")
     print(json.dumps(result))
     return 0
 

@@ -30,7 +30,18 @@ exits non-zero without printing a result:
    every kernel launch counter set to 0 just before each path and read
    just after;
 6. run the large-v2 encoder with the kernels and again with the plain
-   functions, and compare.
+   functions, and compare;
+7. build XTTS v2 at full width (30-layer GPT, D=1024, int8; HiFi-GAN) from
+   seeded numpy weights on the card; hold the fused GPT step (bk=1, caches
+   of 256 and 1152 positions, standard and trap inputs) and the fused
+   sampling head (V_pad=1152, the knob grid, a tie) against their plain
+   versions and time both;
+8. stream one ~200-character English utterance to the 605-token cap
+   (``stream_chunk_size=20``, ``min_audio_tokens=600``, a zero voice)
+   three ways — the default path (fused step, eager epilogue), the fused
+   head, and the eager ``gpt_pass`` path for its first three chunks — each
+   with the counters set to 0 just before and read just after; time the
+   per-token sampling epilogue both ways.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -59,6 +70,14 @@ REQUESTS = ((3840, 32), (10688, 64), (29248, 100))
 #: LayerNorm and flash launches one large-v2 request must make
 #: (2 per encoder layer + ln_post; 1 attention per encoder layer)
 MIN_LN, MIN_FLASH = 65, 32
+#: the XTTS stream: ~200 characters of English, the reference's chunk size,
+#: and a token floor that runs the random-weight GPT to its 605-token cap
+TTS_TEXT = (
+    "Willow streams speech back while the words are still being generated: "
+    "the first audio arrives after six tokens, then every twenty tokens bring "
+    "almost a second more, until the sentence is complete."
+)
+TTS_CHUNK, TTS_MIN_TOKENS = 20, 600
 
 
 def _bf16_ulp(x):
@@ -299,16 +318,18 @@ def _step_inputs(torch, dev, cfg, t_cache, xa_int8, trap, seed):
 
 
 def _step_bound(inp, cfg):
-    """The least time of one step: every int8 weight chunk, scale, bias and
-    LayerNorm row, the cross-KV's real columns (and their scales), the
-    cache columns some row selects, the step's written columns, x in and
-    out and sel, each moved once; the products and attention in bf16."""
+    """The least time of one step: every int8 weight chunk, the scale and
+    bias rows the step reads (11 of 14 per layer: the four W2 chunks share
+    the deferred scale and bias of the last), every LayerNorm row, the
+    cross-KV's real columns (and their scales), the cache columns some row
+    selects, the step's written columns, x in and out and sel, each moved
+    once; the products and attention in bf16."""
     L, D, H = cfg.n_text_layer, cfg.n_text_state, cfg.n_text_head
     bk, s_audio = inp["x_emb"].shape[0], inp["s_audio"]
     xa_elem = inp["xa_k"].element_size()
     picked = int((inp["sel"].sum(dim=0) > 0).sum())
     n_bytes = (
-        L * 14 * D * D + L * 14 * D * 4 * 2 + L * 6 * D * 4
+        L * 14 * D * D + L * 11 * D * 4 * 2 + L * 6 * D * 4
         + 2 * L * D * s_audio * xa_elem
         + (2 * L * 2 * H * s_audio if inp["xa_s"] is not None else 0)
         + 2 * L * D * picked * 2 + 2 * L * D * bk * 2
@@ -444,6 +465,368 @@ def check_fused_head(torch, dev, cfg):
     return rows
 
 
+def _gpt_step_inputs(torch, dev, cfg, t_pad, trap, seed):
+    """XTTS GPT step inputs at bk=1: the step at position pos = t_pad - 56
+    (late in its bucket, as the stream's last token of a bucket), the
+    causal sel over the written columns before it. With ``trap`` every
+    column sel excludes (the stale one at pos, the unwritten ones after it)
+    holds keys of ±TRAP_KEY and values of TRAP_VALUE."""
+    L, D = cfg.n_layer, cfg.d_model
+    pos = t_pad - 56
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    sel = (torch.arange(t_pad, device=dev) < pos).float()[None, :]
+    kc = randn(L, D, t_pad, scale=0.5)
+    vc = randn(L, D, t_pad, scale=0.5)
+    if trap:
+        excluded = sel[0] == 0
+        kc[:, :, excluded] = TRAP_KEY * torch.sign(randn(L, D, int(excluded.sum())))
+        vc[:, :, excluded] = TRAP_VALUE
+    return dict(x_emb=randn(1, D, scale=0.5), k_cache=kc.to(torch.bfloat16),
+                v_cache=vc.to(torch.bfloat16), sel=sel, pos=pos)
+
+
+def _gpt_step_bound(inp, cfg):
+    """The least time of one GPT step: every int8 weight chunk, the scale
+    and bias rows the step reads (9 of 12 per layer: the four W2 chunks
+    share the deferred scale and bias of the last), every LayerNorm row,
+    the selected cache columns and the written ones, x in and out and sel,
+    each moved once; the products and attention in bf16."""
+    L, D = cfg.n_layer, cfg.d_model
+    bk = inp["x_emb"].shape[0]
+    picked = int((inp["sel"].sum(dim=0) > 0).sum())
+    n_bytes = (L * 12 * D * D + L * 9 * D * 4 * 2 + L * 4 * D * 4
+               + 2 * L * D * picked * 2 + 2 * L * D * bk * 2
+               + 2 * bk * D * 4 + inp["sel"].numel() * 4)
+    per_row_cols = int(inp["sel"][0].sum()) + 1
+    ops = L * (2 * bk * 12 * D * D + 4 * bk * D * per_row_cols)
+    return _bound(n_bytes, ops, BF16_FLOPS)
+
+
+def check_fused_gpt_step(torch, dev, cfg, packed, t_full):
+    """The fused GPT step against its plain version at full XTTS width (30
+    layers, D=1024, bk=1, int8) in the first cache bucket (256 positions),
+    the 512 one and the full one (the buckets TTS_TEXT's stream runs), on
+    standard and trap inputs."""
+    from wis_tpu_torch.ops.fused_gpt import fused_gpt_step, fused_gpt_step_plain
+
+    rows = {}
+    for t_pad, trap in ((256, False), (256, True), (512, False), (512, True),
+                        (t_full, False), (t_full, True)):
+        inp = _gpt_step_inputs(torch, dev, cfg, t_pad, trap, seed=t_pad + trap)
+        kc0, vc0 = inp["k_cache"], inp["v_cache"]
+        args = dict(inp)
+        run = {}
+        for name, fn in (("kernel", fused_gpt_step), ("plain", fused_gpt_step_plain)):
+            args["k_cache"], args["v_cache"] = kc0.clone(), vc0.clone()
+            run[name] = fn(cfg, packed, **args)
+        torch.cuda.synchronize()
+        (xk, kk, vk), (xp, kp, vp) = run["kernel"], run["plain"]
+        pos = inp["pos"]
+        other = torch.ones(t_pad, dtype=torch.bool, device=dev)
+        other[pos] = False
+
+        def rel(a, b):
+            return float((a.float() - b.float()).norm() / b.float().norm())
+
+        err = float((xk - xp).abs().max())
+        rels = (rel(xk, xp), rel(kk[..., pos], kp[..., pos]), rel(vk[..., pos], vp[..., pos]))
+        kept = torch.equal(kk[..., other], kc0[..., other]) and torch.equal(vk[..., other], vc0[..., other])
+        case = (f"fused_gpt_step L={cfg.n_layer} D={cfg.d_model} bk=1 t_pad={t_pad} pos={pos} "
+                f"int8{' trap' if trap else ''}")
+        print(f"{case}: x_out max|Δ| {err:.3e}, ‖Δ‖/‖plain‖ x_out {rels[0]:.3e}, "
+              f"written K {rels[1]:.3e}, V {rels[2]:.3e} (tolerance {STEP_REL_NORM:.0e}); "
+              f"other cache columns bit-identical: {kept}")
+        if not (max(rels) <= STEP_REL_NORM and kept and bool(torch.isfinite(xk).all())):
+            raise AssertionError(f"{case}: kernel disagrees with plain")
+        if trap:
+            continue
+        args["k_cache"], args["v_cache"] = kc0.clone(), vc0.clone()
+        ms = _median_ms(lambda: fused_gpt_step(cfg, packed, **args))
+        plain_ms = _median_ms(lambda: fused_gpt_step_plain(cfg, packed, **args),
+                              reps=2, replays=5)
+        bound_ms, bound_by = _gpt_step_bound(inp, cfg)
+        print(f"{case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+        rows[t_pad] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return rows
+
+
+#: the GPT head's knob grid: (temperature, top_k, top_p, repetition_penalty,
+#: stop_blocked, do_sample) — the production defaults sampled and greedy,
+#: top_k 1, top_p 1.0, and a mild penalty
+GPT_HEAD_KNOBS = (
+    (0.1, 50, 0.8, 7.0, 1.0, 1.0),
+    (0.1, 50, 0.8, 7.0, 0.0, 0.0),
+    (1.0, 1, 1.0, 1.0, 0.0, 1.0),
+    (0.7, 50, 1.0, 2.0, 0.0, 1.0),
+    (1.0, 200, 0.95, 1.0, 1.0, 1.0),
+)
+#: the head's values against the plain version's: two bf16 ulps of the
+#: value — both round the LayerNorm outputs and the logits to bf16, and a
+#: summation order that lands an f32 result on the other side of a bf16
+#: rounding boundary moves it by one ulp (then ÷ temperature)
+GPT_HEAD_REL = 2.0 ** -7
+#: smallest allowed distance of a top-p prefix mass from p in the
+#: decision cases (their logits are equal on both sides; only the order of
+#: the probability sums differs, ~1e-7)
+GPT_HEAD_P_MARGIN = 1e-4
+
+
+def _gpt_head_decision_case(torch, dev, cfg, seed):
+    """Inputs whose decisions the two versions must take identically: x a
+    ±1 pattern of zero mean (both LayerNorms return it exactly), unit
+    LayerNorm rows, and a head with one nonzero per column, so each logit
+    is one exact product. The top 64 logits sit 4 bf16 ulps or more apart;
+    the stop token is among the best (the floor must remove it); the hit
+    mask holds token 0 and some of the best (the penalty must demote them);
+    one column duplicates the best one at a lower id (the tie must go to
+    the lower id)."""
+    from wis_tpu_torch.ops.fused_gpt_head import v_padded
+
+    D, V = cfg.d_model, cfg.n_audio_vocab
+    vp = v_padded(V)
+    rng = np.random.default_rng(seed)
+    x = np.where(rng.permutation(D) % 2 == 0, 1.0, -1.0).astype(np.float32)[None]
+    ln4 = np.stack([np.ones(D), np.zeros(D), np.ones(D), np.zeros(D)]).astype(np.float32)
+    target = np.round(rng.standard_normal(V) * 0.6, 2)
+    order = rng.permutation(V)
+    target[order[:64]] = 4.0 - 0.0625 * np.arange(64)  # the best, well apart
+    target[cfg.stop_audio_token] = 4.0 + 0.0625
+    hit = [0, *order[2:8]]
+    best = int(order[0])
+    low = max(t for t in range(1, best) if t not in hit)
+    rows = rng.integers(0, D, V)
+    w = np.zeros((D, vp), np.float32)
+    w[rows, np.arange(V)] = target * x[0, rows]  # logit = x[row]·w = target
+    w[:, low] = w[:, best]
+    hist = np.zeros((1, vp), np.float32)
+    hist[0, hit] = 1.0
+    gum = np.zeros((1, vp), np.float32)
+    gum[0, :V] = -np.log(-np.log(rng.uniform(1e-6, 1.0, V)))
+
+    def host(a, dt=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+
+    return (host(x), host(ln4), host(w, torch.bfloat16), host(np.zeros((1, vp), np.float32)),
+            host(hist), host(gum)), best, low
+
+
+def _prefix_margin(logits_plain, knob_row):
+    """Smallest |prefix mass − p| over the top-k tokens (only there can
+    the p-threshold change the kept set), from the plain version's
+    pre-threshold logits, in f64 on the host."""
+    l = logits_plain[0].double().cpu().numpy()
+    l = l[l > -1e29]
+    p = np.exp(l - l.max())
+    p = p / p.sum()
+    s = np.sort(p)[::-1][: max(int(knob_row[1]), 1)]
+    return float(np.abs(np.cumsum(s) - s - knob_row[2]).min())
+
+
+def check_fused_gpt_head(torch, dev, cfg, head_packed):
+    """The fused GPT head against its plain version at D=1024, V_pad=1152:
+    values on the model's head with random LayerNorm rows, then every
+    decision of the knob grid on constructed inputs (see
+    _gpt_head_decision_case), where ids and the kept set must be equal."""
+    from wis_tpu_torch.ops.fused_gpt_head import fused_gpt_head, fused_gpt_head_plain
+
+    D = cfg.d_model
+    ln4_m, head_w, head_b = head_packed
+    vp = head_w.shape[-1]
+    rng = np.random.default_rng(11)
+
+    def host(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    x = host(rng.standard_normal((1, D)) * 2 + 0.3)
+    ln4 = host(np.concatenate([1 + 0.1 * rng.standard_normal((1, D)), 0.1 * rng.standard_normal((1, D))] * 2))
+    hist = torch.zeros((1, vp), device=dev)
+    hist[0, :40] = 1.0
+    gum = host(-np.log(-np.log(rng.uniform(1e-6, 1.0, (1, vp)))))
+    kw = dict(cfg=cfg, dtype=torch.bfloat16)
+    keep_all = host([[1.0, vp, 1.0, 2.0, 0.0, 0.0, 0.0, 0.0]])
+    got = fused_gpt_head(x, ln4, head_w, head_b, hist, gum, keep_all, **kw)
+    want = fused_gpt_head_plain(x, ln4, head_w, head_b, hist, gum, keep_all, **kw)
+    torch.cuda.synchronize()
+    hid_err = float((got[1] - want[1]).abs().max())
+    hid_ok = bool(((got[1] - want[1]).abs() <= _bf16_ulp(want[1])).all())
+    val_err = (got[2] - want[2]).abs()
+    val_ok = bool((val_err <= GPT_HEAD_REL * want[2].abs() + 1e-6).all())
+    print(f"fused_gpt_head D={D} V_pad={vp} model head, all kept: hidden max|Δ| {hid_err:.3e} "
+          f"(tolerance 1 bf16 ulp: {hid_ok}), logits max|Δ| {float(val_err.max()):.3e} "
+          f"(tolerance 2⁻⁷·|plain|: {val_ok})")
+    if not (hid_ok and val_ok):
+        raise AssertionError("fused_gpt_head: values disagree with plain")
+    err = float(val_err.max())
+
+    inputs, best, low = _gpt_head_decision_case(torch, dev, cfg, seed=5)
+    for knob in GPT_HEAD_KNOBS:
+        k = host([list(knob) + [0.0, 0.0]])
+        tk, hk, lk = fused_gpt_head(*inputs, k, **kw)
+        tp, hp, lp = fused_gpt_head_plain(*inputs, k, **kw)
+        pre = fused_gpt_head_plain(*inputs, host([[knob[0], vp, 1.0, knob[3], knob[4], 0, 0, 0]]), **kw)[2]
+        torch.cuda.synchronize()
+        margin = _prefix_margin(pre, knob)
+        kept_k, kept_p = lk > -1e29, lp > -1e29
+        same_set = torch.equal(kept_k, kept_p)
+        vals = float((lk[kept_p] - lp[kept_p]).abs().max()) if bool(kept_p.any()) else 0.0
+        ids = int(tk) == int(tp)
+        print(f"fused_gpt_head knobs {knob}: token kernel {int(tk)} plain {int(tp)} (equal {ids}), "
+              f"kept {int(kept_k.sum())} / {int(kept_p.sum())} (same set {same_set}), kept values "
+              f"max|Δ| {vals:.3e}, hidden equal {torch.equal(hk, hp)}, top-p margin {margin:.2e}")
+        if margin <= GPT_HEAD_P_MARGIN:
+            raise AssertionError(f"knobs {knob}: a prefix mass is within {margin} of top_p")
+        if not (ids and same_set and vals <= 1e-5 and torch.equal(hk, hp)):
+            raise AssertionError(f"fused_gpt_head knobs {knob}: kernel disagrees with plain")
+        err = max(err, vals)
+    # the duplicated best column: greedy, stop floored, nothing else masked,
+    # picks the lower id
+    k = host([[1.0, vp, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0]])
+    tie = int(fused_gpt_head(*inputs, k, **kw)[0])
+    print(f"fused_gpt_head tie: token {tie}, columns {low} and {best} equal (lower id wins: "
+          f"{tie == low})")
+    if tie != low:
+        raise AssertionError(f"fused_gpt_head tie went to {tie}, not the lower id {low}")
+
+    knobs = host([[0.1, 50, 0.8, 7.0, 0.0, 1.0, 0.0, 0.0]])
+    ms = _median_ms(lambda: fused_gpt_head(x, ln4, head_w, head_b, hist, gum, knobs, **kw))
+    plain_ms = _median_ms(
+        lambda: fused_gpt_head_plain(x, ln4, head_w, head_b, hist, gum, knobs, **kw),
+        reps=5, replays=5)
+    n_bytes = D * vp * 2 + 5 * D * 4 + 3 * vp * 4 + 8 * 4 + 4 + D * 4 + vp * 4
+    bound_ms, bound_by = _bound(n_bytes, 2 * D * vp, BF16_FLOPS)
+    print(f"fused_gpt_head D={D} V_pad={vp}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def tts_full_bucket(model) -> int:
+    """The full cache length of TTS_TEXT's stream (the last bucket)."""
+    g = model.cfg.gpt
+    prefix = model.cfg.cond_len + model._text_bucket(len(model.tokenize(TTS_TEXT, "en"))) + 1
+    return ((prefix + g.max_audio_tokens + 127) // 128) * 128
+
+
+def time_xtts_epilogue(torch, dev, model):
+    """Device ms of one token's sampling epilogue at the stream's shapes and
+    default knobs, both ways: the plain PyTorch ops of the default path
+    (two LayerNorms, the head, the stop floor, ``_sample_token``) and the
+    fused head."""
+    import torch.nn.functional as F
+
+    from wis_tpu_torch.models.xtts.gpt import _ln, _sample_token, _stop_floor
+    from wis_tpu_torch.ops.fused_gpt_head import fused_gpt_head
+
+    g, p, dtype = model.cfg.gpt, model.gpt_params, model.dtype
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((1, g.d_model), generator=gen, device=dev)
+    history = torch.randint(0, g.n_audio_vocab - 2, (1, g.max_audio_tokens), generator=gen,
+                            device=dev)
+    gum = model._gumbel(gen, 1)[0]
+    ln4, head_w, head_b = model.gpt_head_packed
+    vp = head_w.shape[-1]
+    hit = torch.zeros((1, vp), device=dev).scatter_(1, history, 1.0)
+    gum_p = F.pad(gum, (0, vp - g.n_audio_vocab))
+    knobs = torch.tensor([[0.1, 50, 0.8, 7.0, 0.0, 1.0, 0.0, 0.0]], device=dev)
+
+    def eager():
+        h1 = _ln(x.to(dtype), p["gpt_lnf_g"], p["gpt_lnf_b"])
+        logits = (_ln(h1, p["lnf_g"], p["lnf_b"]) @ p["head_w"] + p["head_b"]).float()
+        return _sample_token(_stop_floor(logits, g, False), history, gum, 0.1, 50, 0.8, 7.0,
+                             True)
+
+    eager_ms = _median_ms(eager, reps=10, replays=10)
+    fused_ms = _median_ms(lambda: fused_gpt_head(x, ln4, head_w, head_b, hit, gum_p, knobs,
+                                                 cfg=g, dtype=dtype))
+    print(f"xtts sampling epilogue per token: plain PyTorch ops {eager_ms:.4f} ms, "
+          f"fused head {fused_ms:.4f} ms (device time, CUDA-graph replay)")
+    return eager_ms, fused_ms
+
+
+def stream_xtts(torch, dev, model, counters, path, max_chunks=None):
+    """TTS_TEXT through ``model.inference_stream`` (zero voice, default
+    knobs, the token floor) with every counter set to 0 just before; →
+    (the counts just after, (second chunk, worst slack, total) in ms).
+    Prints the time to the first and second chunk
+    and the worst slack to playback: playback starts when the first chunk
+    arrives, chunk i is due when the audio before it has played, and the
+    slack is due minus arrival (negative: the listener hears a gap).
+    Checks the audio: finite, in [-1, 1], and for a whole stream exactly
+    the cap's samples."""
+    cfg = model.cfg
+    voc, cap = cfg.vocoder, cfg.gpt.max_audio_tokens
+    voice = np.zeros((cfg.cond_len, cfg.gpt.d_model), np.float32)
+    speaker = np.zeros(cfg.vocoder.cond_dim, np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    arrivals, chunks = [], []
+    stream = model.inference_stream(TTS_TEXT, "en", voice, speaker,
+                                    stream_chunk_size=TTS_CHUNK, min_audio_tokens=TTS_MIN_TOKENS)
+    for chunk in stream:
+        arrivals.append(time.perf_counter() - t0)
+        chunks.append(chunk)
+        if max_chunks and len(chunks) >= max_chunks:
+            break
+    stream.close()
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = [c.launches for c in counters]
+    wav = np.concatenate(chunks)
+    tokens = round(len(wav) * voc.input_sample_rate / (voc.gpt_code_stride * voc.sample_rate))
+    exact = tokens * voc.gpt_code_stride * voc.sample_rate // voc.input_sample_rate
+    audio_s = len(wav) / voc.sample_rate
+    names = ", ".join(f"{c.__name__} {n}" for c, n in zip(counters, counts))
+    played = np.cumsum([0] + [len(c) for c in chunks[:-1]]) / voc.sample_rate
+    slack = arrivals[0] + played - np.asarray(arrivals)
+    worst = int(np.argmin(slack[1:])) + 1 if len(chunks) > 1 else 0
+    second = f"{arrivals[1] * 1e3:.2f} ms" if len(chunks) > 1 else "none"
+    print(f"xtts {path} stream: {len(chunks)} chunks, {tokens} tokens, {audio_s:.3f} s of audio; "
+          f"first chunk {arrivals[0] * 1e3:.2f} ms, second chunk {second}, worst slack to "
+          f"playback {slack[worst] * 1e3:.2f} ms (chunk {worst}), total {total * 1e3:.2f} ms, "
+          f"realtime factor {audio_s / total:.2f}; launches: {names}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    if not (np.isfinite(wav).all() and np.abs(wav).max() <= 1.0 and len(wav) == exact):
+        raise AssertionError(f"xtts {path}: bad audio ({len(wav)} samples, {exact} expected)")
+    if max_chunks is None and tokens != cap:
+        raise AssertionError(f"xtts {path}: {tokens} tokens, the floor asks for the cap {cap}")
+    return counts, (arrivals[min(1, len(chunks) - 1)] * 1e3, slack[worst] * 1e3, total * 1e3)
+
+
+#: rounds of the pipeline-depth comparison; each round streams every depth
+#: once, the order rotating from round to round
+DEPTH_ROUNDS = 4
+
+
+def compare_pipeline_depths(torch, dev, model, counters, depths=(1, 2, 3)):
+    """The default stream at each ``pipeline_depth``, DEPTH_ROUNDS times in
+    rotating order; prints each depth's medians of the second chunk's
+    arrival, the worst slack to playback and the total. A chunk queued
+    behind another holds that one's fetch on the card, so deeper queues
+    deliver later; the totals say whether they buy stream time."""
+    default = model.pipeline_depth
+    runs = {d: [] for d in depths}
+    for r in range(DEPTH_ROUNDS):
+        for d in depths[r % len(depths):] + depths[:r % len(depths)]:
+            model.pipeline_depth = d
+            runs[d].append(stream_xtts(torch, dev, model, counters,
+                                       f"default, pipeline_depth={d}")[1])
+    model.pipeline_depth = default
+    for d in depths:
+        second, slack, total = (statistics.median(v) for v in zip(*runs[d]))
+        print(f"xtts pipeline_depth={d}, medians of {DEPTH_ROUNDS}: second chunk {second:.2f} ms, "
+              f"worst slack {slack:.2f} ms, total {total:.2f} ms "
+              f"(totals {', '.join(f'{t[2]:.2f}' for t in runs[d])})")
+
+
 def serve(torch, dev, engine, requests, counters, path):
     """Run `requests` (audio ms, token cap, detect) through the engine with
     every counter set to 0 just before; → the counts just after. Each
@@ -532,7 +915,10 @@ def main() -> int:
     from wis_tpu_torch.device import resolve_device
     from wis_tpu_torch.ops import _build
     from wis_tpu_torch.ops.flash import flash_attention_packed
+    from wis_tpu_torch.models.xtts.model import XTTSModel
     from wis_tpu_torch.ops.fused_decode import fused_decode_step
+    from wis_tpu_torch.ops.fused_gpt import fused_gpt_step
+    from wis_tpu_torch.ops.fused_gpt_head import fused_gpt_head
     from wis_tpu_torch.ops.fused_logits import fused_logits_topk
     from wis_tpu_torch.ops.layernorm import layer_norm_cuda
     from wis_tpu_torch.runtime.engine import WhisperEngine
@@ -588,6 +974,36 @@ def main() -> int:
     launches = serve(torch, dev, engine, requests, counters, "fused")
     check_encode(torch, dev, loaded)
 
+    t0 = time.perf_counter()
+    xtts = XTTSModel(dev)
+    torch.cuda.synchronize()
+    print(f"XTTS v2 seeded random weights on {dev} (int8 GPT, fused step): packed GPT "
+          f"{sum(t.numel() * t.element_size() for t in xtts.gpt_packed) / 2**30:.3f} GiB, "
+          f"in {time.perf_counter() - t0:.2f} s")
+    t_full = tts_full_bucket(xtts)
+    gpt_step = check_fused_gpt_step(torch, dev, xtts.cfg.gpt, xtts.gpt_packed, t_full)
+    gpt_head = check_fused_gpt_head(torch, dev, xtts.cfg.gpt, xtts.gpt_head_packed)
+    time_xtts_epilogue(torch, dev, xtts)
+    tts_counters = (fused_gpt_step, fused_gpt_head)
+    stream_xtts(torch, dev, xtts, tts_counters, "warm-up", max_chunks=2)
+    step_n = stream_xtts(torch, dev, xtts, tts_counters,
+                         f"default (fused step, pipeline_depth={xtts.pipeline_depth})")[0]
+    if not (step_n[0] == xtts.cfg.gpt.max_audio_tokens and step_n[1] == 0):
+        raise AssertionError(f"default stream ran {step_n[0]} steps / {step_n[1]} heads")
+    compare_pipeline_depths(torch, dev, xtts, tts_counters)
+    xtts.fused_head = True
+    stream_xtts(torch, dev, xtts, tts_counters, "warm-up", max_chunks=2)
+    head_n = stream_xtts(torch, dev, xtts, tts_counters, "fused-head")[0]
+    if not head_n[0] == head_n[1] == xtts.cfg.gpt.max_audio_tokens:
+        raise AssertionError(f"fused-head stream ran {head_n[0]} steps / {head_n[1]} heads")
+    del xtts
+    eager = XTTSModel(dev, fused="off")
+    eager_n = stream_xtts(torch, dev, eager, tts_counters, "eager (first 3 chunks)",
+                          max_chunks=3)[0]
+    if any(eager_n):
+        raise AssertionError(f"the eager stream launched fused kernels: {eager_n}")
+    del eager
+
     rows = [
         dict(name="layer_norm", source="wis_tpu_torch/csrc/layernorm.cu",
              replaces="wis_tpu/ops/layernorm.py:38", **ln),
@@ -597,9 +1013,16 @@ def main() -> int:
              replaces="wis_tpu/ops/fused_decode.py:184", **step[128]),
         dict(name="fused_logits_topk", source="wis_tpu_torch/csrc/fused_logits.cu",
              replaces="wis_tpu/ops/fused_logits.py:48", **head[True]),
+        dict(name="fused_gpt_step", source="wis_tpu_torch/csrc/fused_gpt.cu",
+             replaces="wis_tpu/ops/fused_gpt.py:122", **gpt_step[t_full]),
+        dict(name="fused_gpt_head", source="wis_tpu_torch/csrc/fused_gpt_head.cu",
+             replaces="wis_tpu/ops/fused_gpt_head.py:56", **gpt_head),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # the whisper rows count the fused ASR requests; the step counts the
+    # default XTTS stream, the head the fused-head stream
+    launches = list(launches) + [step_n[0], head_n[1]]
     for row, n in zip(rows, launches):
         row.update(route="cuda", launches=n)
     print(json.dumps({"kernels": [{key: row[key] for key in keys} for row in rows]}))

@@ -386,3 +386,149 @@ def test_fused_head_refuses_what_the_kernel_does_not_take(dev):
         with pytest.raises(ValueError, match=match):
             fused_logits_topk(*args, **kw)
     assert fused_logits_topk.launches == before
+
+
+# --------------------------------------------------------------------------- #
+# The fused XTTS GPT step and sampling head (tolerances as in chip_smoke.py:
+# the step within STEP_REL_NORM of its plain version in relative norm and
+# every other cache column bit-identical; the head's values within two bf16
+# ulps on a real head, and equal decisions on inputs whose logits are exact)
+# --------------------------------------------------------------------------- #
+def _narrow_gpt(dev, n_layer=2, d=256, heads=4):
+    from wis_tpu_torch.models.xtts.gpt import GPTConfig, random_gpt
+    from wis_tpu_torch.ops.fused_gpt import pack_gpt
+    from wis_tpu_torch.ops.quant import quantize_gpt_params
+
+    cfg = GPTConfig(n_layer=n_layer, n_head=heads, d_model=d)
+    params = quantize_gpt_params(random_gpt(cfg, seed=3, device=dev))
+    return cfg, params, pack_gpt(params, cfg)
+
+
+@pytest.mark.parametrize("t_pad,pos", [(256, 200), (1152, 1096), (1152, 0)])
+@pytest.mark.parametrize("trap", [False, True])
+def test_fused_gpt_step_kernel_matches_plain(dev, t_pad, pos, trap):
+    """bk=1 over the first cache bucket and the full one; with ``trap`` the
+    columns sel excludes (the stale one at pos, the unwritten ones) hold keys
+    of ±30 and values of 100."""
+    from wis_tpu_torch.ops.fused_gpt import fused_gpt_step, fused_gpt_step_plain
+
+    cfg, _, packed = _narrow_gpt(dev)
+    rng = np.random.default_rng(t_pad + pos + trap)
+    L, D = cfg.n_layer, cfg.d_model
+    kc = _randn(rng, (L, D, t_pad), dev, torch.float32, scale=0.5)
+    vc = _randn(rng, (L, D, t_pad), dev, torch.float32, scale=0.5)
+    sel = (torch.arange(t_pad, device=dev) < pos).float()[None]
+    if trap:
+        kc[:, :, pos:] = 30.0 * torch.sign(kc[:, :, pos:])
+        vc[:, :, pos:] = 100.0
+    kc0, vc0 = kc.bfloat16(), vc.bfloat16()
+    x = _randn(rng, (1, D), dev, torch.float32, scale=0.5)
+    before = fused_gpt_step.launches
+    got = fused_gpt_step(cfg, packed, x, kc0.clone(), vc0.clone(), sel, pos)
+    want = fused_gpt_step_plain(cfg, packed, x, kc0.clone(), vc0.clone(), sel, pos)
+    torch.cuda.synchronize()
+    assert fused_gpt_step.launches == before + 1
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    other = torch.arange(t_pad, device=dev) != pos
+    assert bool(torch.isfinite(got[0]).all()) and rel(got[0], want[0]) <= STEP_REL_NORM
+    for g, w, c0 in ((got[1], want[1], kc0), (got[2], want[2], vc0)):
+        assert rel(g[..., pos], w[..., pos]) <= STEP_REL_NORM
+        assert torch.equal(g[..., other], c0[..., other])
+
+
+def test_fused_gpt_step_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from wis_tpu_torch.models.xtts.gpt import GPTConfig
+    from wis_tpu_torch.ops.fused_gpt import fused_gpt_step
+
+    cfg, _, packed = _narrow_gpt(dev)
+    D = cfg.d_model
+    kc = torch.zeros((cfg.n_layer, D, 256), dtype=torch.bfloat16, device=dev)
+    sel = torch.zeros((1, 256), device=dev)
+    x = torch.zeros((1, D), device=dev)
+    before = fused_gpt_step.launches
+    for args, match in (
+        ((cfg, packed, x.bfloat16(), kc, kc, sel, 3), "x_emb must be f32"),
+        ((cfg, packed, x, kc.float(), kc, sel, 3), "k_cache must be bf16"),
+        ((cfg, packed, x, kc, kc, sel.bfloat16(), 3), "sel must be f32"),
+        ((cfg, packed, x, kc, kc, sel, 256), "pos 256"),
+        ((cfg, packed, torch.zeros((33, D), device=dev), kc, kc, sel, 3), "bk=33"),
+        ((GPTConfig(n_layer=2, n_head=8, d_model=256), packed, x, kc, kc, sel, 3), "head_dim"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            fused_gpt_step(*args)
+    assert fused_gpt_step.launches == before
+
+
+@pytest.mark.parametrize(
+    "knobs",
+    [(0.1, 50, 0.8, 7.0, 1.0, 1.0), (0.1, 50, 0.8, 7.0, 0.0, 0.0), (1.0, 1, 1.0, 1.0, 0.0, 1.0),
+     (0.7, 50, 1.0, 2.0, 0.0, 1.0), (1.0, 200, 0.95, 1.0, 1.0, 1.0)],
+)
+def test_fused_gpt_head_decisions_match_plain(dev, knobs):
+    """On chip_smoke's constructed inputs (exact logits, a floored stop
+    token among the best, penalized hits, token 0 in the history): the
+    same token, kept set and values."""
+    import chip_smoke
+    from wis_tpu_torch.models.xtts.gpt import GPTConfig
+    from wis_tpu_torch.ops.fused_gpt_head import fused_gpt_head, fused_gpt_head_plain
+
+    cfg = GPTConfig()
+    inputs, _, _ = chip_smoke._gpt_head_decision_case(torch, dev, cfg, seed=5)
+    k = torch.tensor([list(knobs) + [0.0, 0.0]], device=dev)
+    before = fused_gpt_head.launches
+    tk, hk, lk = fused_gpt_head(*inputs, k, cfg=cfg)
+    tp, hp, lp = fused_gpt_head_plain(*inputs, k, cfg=cfg)
+    torch.cuda.synchronize()
+    assert fused_gpt_head.launches == before + 1
+    assert tk.dtype == torch.int32 and int(tk) == int(tp)
+    assert torch.equal(lk > -1e29, lp > -1e29) and torch.equal(hk, hp)
+    kept = lp > -1e29
+    assert float((lk[kept] - lp[kept]).abs().max()) <= 1e-5
+
+
+def test_fused_gpt_head_values_match_plain(dev):
+    """A real (random) head and random LayerNorm rows, everything kept:
+    hidden within one bf16 ulp, logits within two bf16 ulps."""
+    from wis_tpu_torch.models.xtts.gpt import GPTConfig, random_gpt
+    from wis_tpu_torch.ops.fused_gpt_head import fused_gpt_head, fused_gpt_head_plain, pack_head
+
+    cfg = GPTConfig(n_layer=1)
+    _, head_w, head_b = pack_head(random_gpt(cfg, seed=2, device=dev), cfg)
+    rng = np.random.default_rng(4)
+    x = _randn(rng, (1, 1024), dev, torch.float32, scale=2.0, shift=0.3)
+    ln4 = torch.cat([_randn(rng, (1, 1024), dev, torch.float32, scale=0.1, shift=1.0),
+                     _randn(rng, (1, 1024), dev, torch.float32, scale=0.1)] * 2)
+    hist = torch.zeros((1, 1152), device=dev)
+    hist[0, :30] = 1.0
+    gum = torch.zeros((1, 1152), device=dev)
+    k = torch.tensor([[1.0, 1152, 1.0, 2.0, 0.0, 0.0, 0.0, 0.0]], device=dev)
+    _, hk, lk = fused_gpt_head(x, ln4, head_w, head_b, hist, gum, k, cfg=cfg)
+    _, hp, lp = fused_gpt_head_plain(x, ln4, head_w, head_b, hist, gum, k, cfg=cfg)
+    torch.cuda.synchronize()
+    assert bool(((hk - hp).abs() <= _bf16_ulp(hp)).all())
+    assert bool(((lk - lp).abs() <= 2.0 ** -7 * lp.abs() + 1e-6).all())
+
+
+def test_fused_gpt_head_refuses_what_the_kernel_does_not_take(dev):
+    from wis_tpu_torch.models.xtts.gpt import GPTConfig
+    from wis_tpu_torch.ops.fused_gpt_head import fused_gpt_head
+
+    cfg = GPTConfig()
+    f = dict(device=dev)
+    good = [torch.zeros((1, 1024), **f), torch.zeros((4, 1024), **f),
+            torch.zeros((1024, 1152), dtype=torch.bfloat16, **f), torch.zeros((1, 1152), **f),
+            torch.zeros((1, 1152), **f), torch.zeros((1, 1152), **f), torch.zeros((1, 8), **f)]
+    before = fused_gpt_head.launches
+    for i, bad, match in ((0, good[0].bfloat16(), "x must be"),
+                          (2, good[2].float(), "head_w must be"),
+                          (4, good[4][:, :-128], "hist must be")):
+        args = list(good)
+        args[i] = bad
+        with pytest.raises(ValueError, match=match):
+            fused_gpt_head(*args, cfg=cfg)
+    with pytest.raises(ValueError, match="working dtype"):
+        fused_gpt_head(*good, cfg=cfg, dtype=torch.float32)
+    assert fused_gpt_head.launches == before

@@ -75,3 +75,14 @@ def audio_i16(n_samples: int, seed: int, batch: int = 1) -> np.ndarray:
     rng = np.random.default_rng(seed)
     pcm = rng.standard_normal((batch, n_samples)) * 0.05
     return np.clip(pcm * 32768.0, -32768, 32767).astype(np.int16)
+
+
+def jax_gumbel_rows(key, chunk, v, batch=1):
+    """The gumbel rows run_decode_chunk's key chain draws, in step order:
+    per step ``key, sub = split(key)``, then ``categorical(sub, ·)`` adds
+    ``gumbel(sub, (batch, v))``."""
+    rows = []
+    for _ in range(chunk):
+        key, sub = jax.random.split(key)
+        rows.append(np.asarray(jax.random.gumbel(sub, (batch, v), jnp.float32)))
+    return np.stack(rows)

@@ -19,6 +19,56 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+enum ReduceOp { kSum = 0, kMax = 1, kMin = 2 };
+
+// Block-wide sum, max or min over a block of NW warps; every thread gets
+// the same value. `red` holds NW floats; the leading barrier also
+// publishes earlier shared writes.
+template <int OP, int NW>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = OP == kSum ? warp_sum(v) : OP == kMax ? warp_max(v) : warp_min(v);
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = red[0];
+#pragma unroll
+  for (int i = 1; i < NW; ++i)
+    t = OP == kSum ? t + red[i] : OP == kMax ? fmaxf(t, red[i]) : fminf(t, red[i]);
+  return t;
+}
+
+// Output columns of one product strip: a block owns kColTile columns of a
+// (K, N) matrix, two threads per k-row (8 columns each).
+constexpr int kColTile = 16;
+
+// Sums the 16 k-rows a warp holds of one strip (lanes of equal parity
+// hold the same column half) and lanes 0 and 1 write the two halves to
+// dst[0, 16).
+__device__ __forceinline__ void strip_warp_sum(float (&acc)[8], float* dst, int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float v = acc[j];
+#pragma unroll
+    for (int off = 2; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    acc[j] = v;
+  }
+  if (lane < 2) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[lane * 8 + j] = acc[j];
+  }
+}
+
 // 8 bf16 in 16 bytes → 8 floats (element 0 in the low half of word 0).
 __device__ __forceinline__ void bf16x8_to_float(uint4 v, float* f) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};

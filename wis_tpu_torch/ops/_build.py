@@ -102,6 +102,12 @@ def kernels() -> ctypes.CDLL:
             lib.wis_fused_logits_workspace_bytes.restype = ll
             lib.wis_fused_logits_topk.argtypes = [p] * 5 + [i] * 6 + [p] * 5
             lib.wis_fused_logits_topk.restype = i
+            lib.wis_fused_gpt_workspace_bytes.argtypes = [i, i]
+            lib.wis_fused_gpt_workspace_bytes.restype = ll
+            lib.wis_fused_gpt_step.argtypes = [p] * 8 + [i, p] + [i] * 5 + [p]
+            lib.wis_fused_gpt_step.restype = i
+            lib.wis_fused_gpt_head.argtypes = [p] * 11 + [i] * 4 + [p]
+            lib.wis_fused_gpt_head.restype = i
             _lib = lib
         return _lib
 

@@ -36,11 +36,11 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from wis_tpu_torch.models.whisper.config import WhisperConfig
 from wis_tpu_torch.ops import _build
+from wis_tpu_torch.ops.gelu import gelu_tanh
 from wis_tpu_torch.ops.layernorm import layer_norm_plain
 
 NEG = -1e30
@@ -52,8 +52,6 @@ NC = 14
 
 #: the largest BK (rows of one step) the kernels take
 MAX_ROWS = 32
-#: jax.nn.gelu(approximate=True)'s constant, sqrt(2/pi) in f32
-_GELU_C = float(np.float32(np.sqrt(2 / np.pi)))
 
 
 class PackedDecoder(NamedTuple):
@@ -155,16 +153,36 @@ def quantize_xa_columns(xa_k_f: torch.Tensor, xa_v_f: torch.Tensor):
 # --------------------------------------------------------------------------- #
 # The plain version: line for line fused_decode_step_reference
 # --------------------------------------------------------------------------- #
-def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu(x, approximate=True)``: the tanh formula, in its order
-    of operations."""
-    cdf = 0.5 * (1.0 + torch.tanh(_GELU_C * (x + 0.044715 * (x * x * x))))
-    return x * cdf
-
-
 def _bf(x: torch.Tensor) -> torch.Tensor:
     """Round to bf16 and compute on in f32 (a bf16 operand of an f32 dot)."""
     return x.to(torch.bfloat16).float()
+
+
+def self_attention_plain(qh, kh, vh, kc_l, vc_l, keep, scale):
+    """One layer's self-attention as the fused steps compute it, per head
+    (qh, kh, vh (H, BK, Dh) f32; one layer's cache viewed (H, Dh, BK·T);
+    keep (BK, BK·T) bool): scores bf16(q)·K in f32 where keep, else -1e30;
+    the self column q·k in f32; e rounded to bf16 for P·V while the
+    denominator sums the f32 e. → (H, BK, Dh) f32."""
+    scores = (_bf(qh) @ kc_l.float()) * scale  # (H, BK, BKT)
+    scores = torch.where(keep, scores, NEG)
+    s_self = (qh * kh).sum(dim=-1, keepdim=True) * scale  # (H, BK, 1)
+    m = torch.maximum(scores.amax(dim=-1, keepdim=True), s_self)
+    e = torch.exp(scores - m)
+    e_self = torch.exp(s_self - m)
+    denom = e.sum(dim=-1, keepdim=True) + e_self
+    out = _bf(e) @ vc_l.float().transpose(-1, -2)  # (H, BK, Dh)
+    return (out + e_self * vh) / denom
+
+
+def mlp_residual_plain(x, h, w, s, b):
+    """x + the MLP of h (the LN output) over one layer's four W1 and four
+    W2 (D, D) int8 chunks w[0:4], w[4:8] with scales and biases s, b:
+    g_i = bf16(gelu(h·W1_i·s + b)), then (x + (Σ g_i·W2_i)·s) + b with the
+    W2 scale and bias of the last chunk."""
+    g = [_bf(gelu_tanh((_bf(h) @ w[i].float()) * s[i] + b[i])) for i in range(4)]
+    y = sum(g[i] @ w[4 + i].float() for i in range(4))
+    return x + y * s[7] + b[7]
 
 
 def fused_decode_step_plain(
@@ -207,16 +225,8 @@ def fused_decode_step_plain(
     for l in range(L):
         h = layer_norm_plain(x, packed.ln[l, 0], packed.ln[l, 1])
         q, k, v = wdot(h, l, QW), wdot(h, l, KW), wdot(h, l, VW)
-        qh, kh, vh = heads(q), heads(k), heads(v)
-        scores = (_bf(qh) @ kcv[l].float()) * scale  # (H, BK, BKT)
-        scores = torch.where(keep, scores, NEG)
-        s_self = (qh * kh).sum(dim=-1, keepdim=True) * scale  # (H, BK, 1)
-        m = torch.maximum(scores.amax(dim=-1, keepdim=True), s_self)
-        e = torch.exp(scores - m)
-        e_self = torch.exp(s_self - m)
-        denom = e.sum(dim=-1, keepdim=True) + e_self
-        out = _bf(e) @ vcv[l].float().transpose(-1, -2)  # (H, BK, Dh)
-        attn = ((out + e_self * vh) / denom).transpose(0, 1).reshape(bk, D)
+        out = self_attention_plain(heads(q), heads(k), heads(v), kcv[l], vcv[l], keep, scale)
+        attn = out.transpose(0, 1).reshape(bk, D)
         # this step's K/V columns, written where the kernel writes them
         cols = slice(pos * bk, (pos + 1) * bk)
         k_cache[l, :, cols] = k.T.to(k_cache.dtype)
@@ -238,9 +248,8 @@ def fused_decode_step_plain(
         x = x + wdot(ctx.reshape(bk, D), l, COW)
 
         h = layer_norm_plain(x, packed.ln[l, 4], packed.ln[l, 5])
-        g = [_bf(gelu_tanh(wdot(h, l, W1_0 + i))) for i in range(4)]
-        y = sum(g[i] @ packed.w[l, W2_0 + i].float() for i in range(4))
-        x = x + y * packed.s[l, W2_0 + 3] + packed.b[l, W2_0 + 3]
+        mlp = slice(W1_0, W2_0 + 4)
+        x = mlp_residual_plain(x, h, packed.w[l, mlp], packed.s[l, mlp], packed.b[l, mlp])
     return x, k_cache, v_cache
 
 

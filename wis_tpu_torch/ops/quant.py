@@ -1,4 +1,4 @@
-"""Weight-only int8 quantization (port of ``wis_tpu/ops/quant.py:26-159``).
+"""Weight-only int8 quantization (port of ``wis_tpu/ops/quant.py:26-177``).
 
 A weight leaf becomes ``{"q": int8 (..., K, N), "s": f32 (..., 1, N)}``
 (per output channel) or, for the logits embedding, ``{"q": int8 (V, D),
@@ -100,3 +100,17 @@ def quantize_whisper_params(params: Dict) -> Dict:
     dec = walk(params["decoder"])
     dec["tok_emb_q"] = quantize_rows(dec["tok_emb"])
     return dict(params, decoder=dec)
+
+
+#: XTTS GPT block matmul weights (models/xtts/gpt.py layout)
+_GPT_QUANT_KEYS = ("q_w", "k_w", "v_w", "proj_w", "mlp_w1", "mlp_w2")
+
+
+def quantize_gpt_params(params: Dict) -> Dict:
+    """Copy of an XTTS GPT tree with the stacked block matmul weights
+    quantized per output channel (the JAX package's production default);
+    embeddings, LayerNorms and the audio-code head keep the working dtype."""
+    blocks = dict(params["blocks"])
+    for k in _GPT_QUANT_KEYS:
+        blocks[k] = quantize_weight(blocks[k])
+    return dict(params, blocks=blocks)
