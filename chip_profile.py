@@ -22,7 +22,13 @@ Prints, each on its own line, with the card's name and power limit first:
    over the profiled ``asr_dispatch`` span, and summed kernel time over the
    unprofiled request's median latency (the profiler slows the host, so
    the first understates the share);
-3. XTTS v2 at full width (``chip_smoke.py``'s seeded model and 605-token
+3. on the fused path, the request kinds beyond the bench shapes — a
+   language-detect, a timestamps and a word-timestamps request (3.84 s,
+   32 tokens), a 180 s long-form request (64 tokens per window) and a
+   coalesced batch of four 3.84 s requests: unprofiled latency (medians
+   of repeats) and one profiled request (launches, kernel time, busy
+   share of the whole call, unprofiled and profiled);
+4. XTTS v2 at full width (``chip_smoke.py``'s seeded model and 605-token
    stream): the prefill, one 20-token chunk of the fused decode (plain
    epilogue and fused head) and one vocoder call, timed like the phases
    above; then for the default path and the fused head, unprofiled
@@ -206,6 +212,44 @@ def profiled_request(torch, engine, out_dir, unprofiled_ms, tag):
                            ("dispatch", "request"))}
 
 
+def _kinds(engine):
+    """The request kinds of part 3 → {name: call}."""
+    from wis_tpu_torch.runtime.engine import ASRRequest
+
+    def transcribe(ms, seed, **kw):
+        return lambda: engine.transcribe(_audio_i16(ms, seed), beam_size=5, **kw)
+
+    return {
+        "detect_3840ms_cap32": transcribe(3840, 3, max_tokens=32, detect_language=True),
+        "timestamps_3840ms_cap32": transcribe(3840, 10, max_tokens=32, timestamps=True),
+        "words_3840ms_cap32": transcribe(3840, 11, max_tokens=32, word_timestamps=True),
+        "longform_180000ms_cap64": transcribe(180000, 12, max_tokens=64),
+        "coalesced4_3840ms_cap32": lambda: engine.transcribe_coalesced([
+            ASRRequest(audio=_audio_i16(3840, 300 + i), model="large", beam_size=5,
+                       max_tokens=32) for i in range(4)]),
+    }
+
+
+def request_kinds(torch, engine, out_dir, reps=3):
+    """Each kind once to warm it, ``reps`` unprofiled calls (host clock
+    around the call and a device sync), then one profiled call."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    out = {}
+    for name, call in _kinds(engine).items():
+        call()
+        ms = [_median_s(torch, call, 1) for _ in range(reps)]
+        med = statistics.median(ms)
+        out[f"{name}_ms"], out[f"{name}_ms_all"] = med, ms
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("request"):
+                call()
+        torch.cuda.synchronize()
+        stats = _trace_stats(prof, "request", out_dir, f"fused_{name}", med, ("call", "call"))
+        out.update({f"{name}_{k}": v for k, v in stats.items()})
+    return out
+
+
 def _stream(torch, model):
     """TTS_TEXT streamed as chip_smoke.py streams it → (first chunk ms,
     total ms), the total after a device sync."""
@@ -323,6 +367,7 @@ def main() -> int:
         report(profiled_request(torch, engine, args.out,
                                 latency[f"request_{ms}ms_cap{cap}_infer_ms"], path),
                f"{path}_")
+    report(request_kinds(torch, engine, args.out), "fused_")
     del engine, loaded
 
     from wis_tpu_torch.models.xtts.model import XTTSModel

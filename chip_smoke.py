@@ -16,19 +16,31 @@ exits non-zero without printing a result:
 3. hold each encoder kernel against its plain PyTorch version on the card,
    in bf16, at the encoder's shapes (flash also on inputs that expose an
    unmasked ragged key tile), and time kernel, plain version and the
-   PyTorch library call that computes the same function;
+   PyTorch library call that computes the same function; the same for
+   ``int8_matmul`` (the cross-KV products of one and four windows, a
+   decode step's MLP products at 5 and 15 rows, the XTTS prefill; the
+   library call ``torch.mm`` on a bf16-dequantized weight) and
+   ``ancestry_attention`` (BK 5 and 20, H=20, Dh=64, a scrambled map, a
+   trap past pos);
 4. load large-v2 with seeded random int8 weights; hold the fused decode
-   step (all 32 layers, BK=5, caches of 128 and 256 positions, int8 and
-   bf16 cross-KV) and the fused logits head (V=51865, bf16 and int8
-   embedding) against their plain versions, on standard inputs and on
-   trap inputs that a kernel reading a masked column, ignoring the
-   suppress mask or breaking a tie the wrong way fails; time both;
-5. serve a large-v2 beam-5 request through the eager decoder
-   (``fused_decode="off"``), then the main path: the bench shapes 3.84 s /
-   10.7 s / 29.2 s with 32 / 64 / 100 tokens plus one language-detect
-   request with ``fused_decode="auto"`` (the fused path on the card),
-   every kernel launch counter set to 0 just before each path and read
-   just after;
+   step (all 32 layers, BK=5 with caches of 128 and 256 positions, int8
+   and bf16 cross-KV, and BK=20 over four windows) and the fused logits
+   head (V=51865, bf16 and int8 embedding, and its grammar mode at BK 5
+   and 20 on exact inputs) against their plain versions, on standard
+   inputs and on trap inputs that a kernel reading a masked column or
+   another window's cross-KV, ignoring the suppress or a grammar mask,
+   letting a masked timestamp region add to its sum, or breaking a tie or
+   the min_ts floor the wrong way fails; time them;
+5. serve every ASR request kind through the engine, every kernel launch
+   counter set to 0 just before each and read just after, each kind's
+   launches checked: a large-v2 beam-5 request on the eager decoder
+   (``fused_decode="off"``: ancestry_attention 32 and int8_matmul 256 per
+   decode step), then with ``fused_decode="auto"`` (the fused path on the
+   card) the main path — the bench shapes 3.84 s / 10.7 s / 29.2 s with
+   32 / 64 / 100 tokens plus one language-detect request — then a
+   timestamps request (the grammar head at every step), a word-timestamps
+   request (the alignment call), a 180 s long-form request (13 windows in
+   4 groups, the fused step at BK=20) and a coalesced batch of four;
 6. run the large-v2 encoder with the kernels and again with the plain
    functions, and compare;
 7. build XTTS v2 at full width (30-layer GPT, D=1024, int8; HiFi-GAN) from
@@ -37,7 +49,7 @@ exits non-zero without printing a result:
    sampling head (V_pad=1152, the knob grid, a tie) against their plain
    versions and time both;
 8. stream one ~200-character English utterance to the 605-token cap
-   (``stream_chunk_size=20``, ``min_audio_tokens=600``, a zero voice)
+   (``stream_chunk_size=20``, ``min_audio_tokens=605``, a zero voice)
    three ways — the default path (fused step, eager epilogue), the fused
    head, and the eager ``gpt_pass`` path for its first three chunks — each
    with the counters set to 0 just before and read just after; time the
@@ -67,17 +79,23 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 #: (audio ms, max_tokens) — the bench's large-v2 beam-5 rows
 REQUESTS = ((3840, 32), (10688, 64), (29248, 100))
-#: LayerNorm and flash launches one large-v2 request must make
-#: (2 per encoder layer + ln_post; 1 attention per encoder layer)
+#: LayerNorm and flash launches one large-v2 encoder call makes (2 per
+#: encoder layer + ln_post; 1 attention per encoder layer)
 MIN_LN, MIN_FLASH = 65, 32
+#: int8_matmul launches of one ASR program call (the 64 cross-KV products
+#: and the prompt prefill's 8 per decoder layer), and of one more decoder
+#: pass (language detection, an eager decode step, the alignment pass)
+INT8_CALL, INT8_PASS = 320, 256
 #: the XTTS stream: ~200 characters of English, the reference's chunk size,
-#: and a token floor that runs the random-weight GPT to its 605-token cap
+#: and a token floor at the 605-token cap, so the random-weight GPT runs to
+#: the cap whatever it samples (below the cap, whether it stops in the last
+#: few tokens turns on the last bits of its products)
 TTS_TEXT = (
     "Willow streams speech back while the words are still being generated: "
     "the first audio arrives after six tokens, then every twenty tokens bring "
     "almost a second more, until the sentence is complete."
 )
-TTS_CHUNK, TTS_MIN_TOKENS = 20, 600
+TTS_CHUNK, TTS_MIN_TOKENS = 20, 605
 
 
 def _bf16_ulp(x):
@@ -270,19 +288,22 @@ STEP_REL_NORM = 2e-2
 TRAP_KEY, TRAP_VALUE = 30.0, 100.0
 
 
-def _step_inputs(torch, dev, cfg, t_cache, xa_int8, trap, seed):
-    """Large-v2 decode-step inputs at BK=5, the step at position
-    t_cache // 2 with random beam ancestry before it. With ``trap`` every
-    cache column that no row's ``sel`` picks (the stale column at pos, the
-    unwritten positions after it, the beams no row descends from) holds
-    keys of ±TRAP_KEY and values of TRAP_VALUE — some score ~10× above the
-    real keys — and so do the cross-KV pad columns 1500..1535. A kernel
-    that reads a column sel excludes, double-counts the self column or
-    reads a pad column moves every output far off."""
+def _step_inputs(torch, dev, cfg, t_cache, xa_int8, trap, seed, n_seq=1):
+    """Large-v2 decode-step inputs at BK=5 per window (n_seq windows, BK =
+    5·n_seq), the step at position t_cache // 2 with random beam ancestry
+    inside each window's rows before it. With ``trap`` every cache column
+    that no row's ``sel`` picks (the stale column at pos, the unwritten
+    positions after it, the beams no row descends from) holds keys of
+    ±TRAP_KEY and values of TRAP_VALUE — some score ~10× above the real
+    keys — and so do the cross-KV pad columns 1500..1535 and, with several
+    windows, every real cross-KV column of the odd windows. A kernel that
+    reads a column sel excludes, double-counts the self column, reads a pad
+    column or lets a row read another window's cross-KV moves the outputs
+    far off."""
     from wis_tpu_torch.ops.fused_decode import quantize_xa_columns
 
     L, D, H = cfg.n_text_layer, cfg.n_text_state, cfg.n_text_head
-    bk, s_audio = 5, cfg.n_audio_ctx
+    bk, s_audio = 5 * n_seq, cfg.n_audio_ctx
     s_pad = ((s_audio + 127) // 128) * 128
     pos = t_cache // 2
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -291,47 +312,50 @@ def _step_inputs(torch, dev, cfg, t_cache, xa_int8, trap, seed):
         return torch.randn(shape, generator=g, device=dev) * scale
 
     rng = np.random.default_rng(seed)
-    anc = rng.integers(0, bk, (bk, pos))
+    anc = rng.integers(0, 5, (bk, pos)) + (np.arange(bk) // 5 * 5)[:, None]
     sel = np.zeros((bk, t_cache, bk), np.float32)
     for r in range(bk):
         sel[r, np.arange(pos), anc[r]] = 1.0
     sel = torch.from_numpy(sel.reshape(bk, t_cache * bk)).to(dev)
     kc = randn(L, D, bk * t_cache, scale=0.5)
     vc = randn(L, D, bk * t_cache, scale=0.5)
-    xk = randn(L, H, D // H, s_pad, scale=0.5)
-    xv = randn(L, H, D // H, s_pad, scale=0.5)
-    xk[..., s_audio:] = 0.0
-    xv[..., s_audio:] = 0.0
+    xk = randn(L, H, D // H, n_seq * s_pad, scale=0.5)
+    xv = randn(L, H, D // H, n_seq * s_pad, scale=0.5)
+    col = torch.arange(n_seq * s_pad, device=dev)
+    pad = (col % s_pad) >= s_audio
+    xk[..., pad] = 0.0
+    xv[..., pad] = 0.0
     if trap:
         excluded = sel.sum(dim=0) == 0
         kc[:, :, excluded] = TRAP_KEY * torch.sign(randn(L, D, int(excluded.sum())))
         vc[:, :, excluded] = TRAP_VALUE
-        xk[..., s_audio:] = TRAP_KEY * torch.sign(randn(L, H, D // H, s_pad - s_audio))
-        xv[..., s_audio:] = TRAP_VALUE
+        hot = pad | ((col // s_pad) % 2 == 1)
+        xk[..., hot] = TRAP_KEY * torch.sign(randn(L, H, D // H, int(hot.sum())))
+        xv[..., hot] = TRAP_VALUE
     kc, vc, xk, xv = (t.to(torch.bfloat16) for t in (kc, vc, xk, xv))
     xs = None
     if xa_int8:
         xk, xv, xs = quantize_xa_columns(xk, xv)
     x_emb = randn(bk, D, scale=0.5)
     return dict(x_emb=x_emb, k_cache=kc, v_cache=vc, xa_k=xk, xa_v=xv, sel=sel,
-                pos=pos, s_audio=s_audio, xa_s=xs)
+                pos=pos, s_audio=s_audio, xa_s=xs, n_seq=n_seq)
 
 
 def _step_bound(inp, cfg):
     """The least time of one step: every int8 weight chunk, the scale and
     bias rows the step reads (11 of 14 per layer: the four W2 chunks share
-    the deferred scale and bias of the last), every LayerNorm row, the
-    cross-KV's real columns (and their scales), the cache columns some row
-    selects, the step's written columns, x in and out and sel, each moved
-    once; the products and attention in bf16."""
+    the deferred scale and bias of the last), every LayerNorm row, each
+    window's real cross-KV columns (and their scales), the cache columns
+    some row selects, the step's written columns, x in and out and sel,
+    each moved once; the products and attention in bf16."""
     L, D, H = cfg.n_text_layer, cfg.n_text_state, cfg.n_text_head
-    bk, s_audio = inp["x_emb"].shape[0], inp["s_audio"]
+    bk, s_audio, n_seq = inp["x_emb"].shape[0], inp["s_audio"], inp["n_seq"]
     xa_elem = inp["xa_k"].element_size()
     picked = int((inp["sel"].sum(dim=0) > 0).sum())
     n_bytes = (
         L * 14 * D * D + L * 11 * D * 4 * 2 + L * 6 * D * 4
-        + 2 * L * D * s_audio * xa_elem
-        + (2 * L * 2 * H * s_audio if inp["xa_s"] is not None else 0)
+        + 2 * L * D * s_audio * n_seq * xa_elem
+        + (2 * L * 2 * H * s_audio * n_seq if inp["xa_s"] is not None else 0)
         + 2 * L * D * picked * 2 + 2 * L * D * bk * 2
         + 2 * bk * D * 4 + inp["sel"].numel() * 4
     )
@@ -341,13 +365,18 @@ def _step_bound(inp, cfg):
 
 
 def check_fused_step(torch, dev, cfg, packed):
-    """The fused step against its plain version at full large-v2 width."""
+    """The fused step against its plain version at full large-v2 width: one
+    window (BK=5) and four (BK=20, block-diagonal cross-attention, as
+    long-form groups and coalesced batches run it)."""
     from wis_tpu_torch.ops.fused_decode import fused_decode_step, fused_decode_step_plain
 
     rows = {}
-    for t_cache, xa_int8, trap in ((128, True, False), (128, True, True), (128, False, True),
-                                   (256, True, False), (256, False, True)):
-        inp = _step_inputs(torch, dev, cfg, t_cache, xa_int8, trap, seed=t_cache + trap)
+    for t_cache, xa_int8, trap, n_seq in ((128, True, False, 1), (128, True, True, 1),
+                                          (128, False, True, 1), (256, True, False, 1),
+                                          (256, False, True, 1), (256, True, False, 4),
+                                          (256, True, True, 4)):
+        inp = _step_inputs(torch, dev, cfg, t_cache, xa_int8, trap, seed=t_cache + trap,
+                           n_seq=n_seq)
         kc0, vc0 = inp["k_cache"], inp["v_cache"]
         args = dict(inp)
         run = {}
@@ -367,7 +396,7 @@ def check_fused_step(torch, dev, cfg, packed):
         err = float((xk - xp).abs().max())
         rels = (rel(xk, xp), rel(kk[..., cols], kp[..., cols]), rel(vk[..., cols], vp[..., cols]))
         kept = torch.equal(kk[..., other], kc0[..., other]) and torch.equal(vk[..., other], vc0[..., other])
-        case = (f"fused_decode_step L=32 D=1280 BK=5 t_cache={t_cache} "
+        case = (f"fused_decode_step L=32 D=1280 BK={bk} n_seq={n_seq} t_cache={t_cache} "
                 f"xa {'int8' if xa_int8 else 'bf16'}{' trap' if trap else ''}")
         print(f"{case}: x_out max|Δ| {err:.3e}, ‖Δ‖/‖plain‖ x_out {rels[0]:.3e}, "
               f"written K {rels[1]:.3e}, V {rels[2]:.3e} (tolerance {STEP_REL_NORM:.0e}); "
@@ -383,8 +412,8 @@ def check_fused_step(torch, dev, cfg, packed):
         bound_ms, bound_by = _step_bound(inp, cfg)
         print(f"{case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})")
-        rows[t_cache] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        rows[(t_cache, n_seq)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     return rows
 
 
@@ -463,6 +492,236 @@ def check_fused_head(torch, dev, cfg):
             rows[int8] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     return rows
+
+
+#: int8_matmul shapes (M, K, N): one window's cross-KV projection and a
+#: four-window group's, a decode step's MLP products at 5 and 15 rows, the
+#: XTTS prefill's first MLP product
+INT8_SHAPES = ((1500, 1280, 1280), (6000, 1280, 1280), (5, 1280, 5120), (5, 5120, 1280),
+               (15, 1280, 5120), (15, 5120, 1280), (289, 1024, 4096))
+
+
+def check_int8_matmul(torch, dev):
+    """int8_matmul against its plain version at the main path's shapes,
+    each element within 2 bf16 ulps plus 2⁻⁸·max|plain| (the flash rule:
+    f32 sums of the same bf16 products in another order, each side rounded
+    once to bf16); timed beside the plain version and ``torch.mm`` on a
+    weight dequantized to bf16 beforehand (the library yardstick: it reads
+    twice the weight bytes and rounds the effective weight)."""
+    from wis_tpu_torch.ops.quant import int8_matmul, int8_matmul_plain, quantize_weight
+
+    rows = {}
+    for m, k, n in INT8_SHAPES:
+        rng = np.random.default_rng(m + k + n)
+        x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(dev, torch.bfloat16)
+        w = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32) * 0.05).to(dev)
+        leaf = quantize_weight(w)
+        q, sc = leaf["q"], leaf["s"]
+        got = int8_matmul(x, q, sc)
+        want = int8_matmul_plain(x, q, sc)
+        torch.cuda.synchronize()
+        r = want.float()
+        d = (got.float() - r).abs()
+        bad = int((d > 2 * _bf16_ulp(r) + 2.0 ** -8 * float(r.abs().max())).sum())
+        ms = _median_ms(lambda: int8_matmul(x, q, sc))
+        plain_ms = _median_ms(lambda: int8_matmul_plain(x, q, sc), reps=5, replays=5)
+        wb = q.to(torch.bfloat16) * sc.to(torch.bfloat16)
+        library_ms = _median_ms(lambda: torch.mm(x, wb))
+        bound_ms, bound_by = _bound(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n,
+                                    BF16_FLOPS)
+        print(f"int8_matmul M={m} K={k} N={n}: max|Δ| {float(d.max()):.3e} ({bad} elements over "
+              f"2 bf16 ulps + 2^-8·max|plain|); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.mm on a bf16 weight {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if bad or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"int8_matmul M={m} K={k} N={n}: kernel disagrees with plain")
+        rows[(m, k, n)] = dict(max_abs_err=float(d.max()), ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return rows
+
+
+#: ancestry_attention cases (BK, T, pos): one window's beams and four
+#: windows', early and late in a cache
+ANC_CASES = ((5, 128, 64), (20, 256, 200))
+
+
+def _anc_inputs(torch, dev, bk, t, pos, trap, seed):
+    """Large-v2 self-attention shapes (H=20, Dh=64) with an ancestry map
+    scrambled inside each window's five rows up to pos and -1 after; with
+    ``trap`` the cache columns past pos hold keys of ±1e4 and values of
+    1e4, which a kernel reading them cannot hide."""
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale).to(dev)
+
+    q = randn(bk, 20, 64).to(torch.bfloat16)
+    kc, vc = randn(bk, 20, 64, t, scale=0.5), randn(bk, 20, 64, t)
+    if trap:
+        kc[..., pos + 1:] = 1e4 * torch.sign(kc[..., pos + 1:])
+        vc[..., pos + 1:] = 1e4
+    anc = np.full((bk, t), -1, np.int32)
+    anc[:, : pos + 1] = rng.integers(0, 5, (bk, pos + 1)) + (np.arange(bk) // 5 * 5)[:, None]
+    return q, kc.to(torch.bfloat16), vc.to(torch.bfloat16), torch.from_numpy(anc).to(dev)
+
+
+def check_ancestry_attention(torch, dev):
+    """ancestry_attention against its plain version (the flash rule: each
+    element within 2 bf16 ulps plus 2⁻⁸·max|plain|; both take f32 scores,
+    softmax and sums in another order and round once), on standard and
+    trap inputs; timed at the standard ones. No single PyTorch call
+    computes it (the rows must be gathered first)."""
+    from wis_tpu_torch.ops.decode_attn import ancestry_attention, ancestry_attention_plain
+
+    rows = {}
+    for bk, t, pos in ANC_CASES:
+        for trap in (False, True):
+            q, kc, vc, anc = _anc_inputs(torch, dev, bk, t, pos, trap, seed=bk + t + trap)
+            got = ancestry_attention(q, kc, vc, anc, pos)
+            want = ancestry_attention_plain(q, kc, vc, anc, pos)
+            torch.cuda.synchronize()
+            r = want.float()
+            d = (got.float() - r).abs()
+            bad = int((d > 2 * _bf16_ulp(r) + 2.0 ** -8 * float(r.abs().max())).sum())
+            case = f"ancestry_attention BK={bk} H=20 Dh=64 T={t} pos={pos}{' trap' if trap else ''}"
+            print(f"{case}: max|Δ| {float(d.max()):.3e}, max|plain| {float(r.abs().max()):.3e} "
+                  f"({bad} elements over 2 bf16 ulps + 2^-8·max|plain|)")
+            if bad or not float(got.float().abs().max()) < 100:
+                raise AssertionError(f"{case}: kernel disagrees with plain")
+            if trap:
+                continue
+            ms = _median_ms(lambda: ancestry_attention(q, kc, vc, anc, pos))
+            plain_ms = _median_ms(lambda: ancestry_attention_plain(q, kc, vc, anc, pos),
+                                  reps=5, replays=5)
+            n = pos + 1
+            bound_ms, bound_by = _bound(2 * bk * 20 * 64 * n * 2 + bk * n * 4 + 2 * bk * 20 * 64 * 2,
+                                        4 * bk * 20 * 64 * n, F32_FLOPS)
+            print(f"{case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by})")
+            rows[bk] = dict(max_abs_err=float(d.max()), ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return rows
+
+
+def check_grammar_head(torch, dev, cfg):
+    """The fused head's grammar mode against its plain version at V = 51865,
+    D = 1280, on grammar_head_case's exact inputs: ids and candidate values
+    equal, lse within 1e-5 relative (f32 sums in another order), and every
+    grammar decision held — so a kernel that ignores a mask, lets a masked
+    region add to the timestamp sum, or breaks the tie or the min_ts floor
+    the wrong way fails. Timed at BK=5 with the int8 table."""
+    from wis_tpu_torch.models.whisper.tokenizer import EOT, layout_for_vocab
+    from wis_tpu_torch.ops.fused_logits import fused_logits_topk, fused_logits_topk_plain
+    from wis_tpu_torch.ops.quant import quantize_rows
+
+    V, D, k = cfg.n_vocab, cfg.n_text_state, 6
+    ts_base = layout_for_vocab(V).timestamp_base
+    row = None
+    for bk in (5, 20):
+        x, g, b, emb, sup, ts = (torch.from_numpy(a).to(dev) for a in
+                                 grammar_head_case(bk, D, V, ts_base, EOT, seed=bk))
+        emb = emb.to(torch.bfloat16)
+        for int8 in (True, False):
+            table = quantize_rows(emb) if int8 else emb
+            for full in (False, True):
+                kw = dict(k=k, full_lse=full, ts_state=ts, ts_base=ts_base, eot=EOT)
+                val, tok, lse = fused_logits_topk(x, g, b, table, sup, **kw)
+                wv, wt, wl = fused_logits_topk_plain(x, g, b, table, sup, **kw)
+                torch.cuda.synchronize()
+                held = grammar_decisions(val.cpu().numpy(), tok.cpu().numpy(), ts_base, EOT)
+                ids_equal, err = torch.equal(tok, wt), float((val - wv).abs().max())
+                lse_rel = float(((lse - wl).abs() / wl.abs().clamp_min(1.0)).max())
+                case = (f"fused_logits_topk grammar V={V} BK={bk} k={k} emb "
+                        f"{'int8' if int8 else 'bf16'} full_lse={full}")
+                print(f"{case}: ids equal {ids_equal}, values max|Δ| {err:.3e} (exact inputs: "
+                      f"tolerance 0), lse relative |Δ| {lse_rel:.3e} (tolerance 1e-5); "
+                      + ", ".join(f"{rule} {ok}" for rule, ok in held.items()))
+                if not (ids_equal and err == 0.0 and lse_rel <= 1e-5 and all(held.values())):
+                    raise AssertionError(f"{case}: kernel disagrees with plain")
+                if bk != 5 or not int8 or full:
+                    continue
+                ms = _median_ms(lambda: fused_logits_topk(x, g, b, table, sup, **kw))
+                plain_ms = _median_ms(lambda: fused_logits_topk_plain(x, g, b, table, sup, **kw),
+                                      reps=5, replays=5)
+                n_bytes = (V * D + V * 4 + V * 4 + bk * D * 4 + 2 * D * 4 + bk * 16
+                           + bk * (k * 12 + 4))
+                bound_ms, bound_by = _bound(n_bytes, 2 * bk * V * D, BF16_FLOPS)
+                print(f"{case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                      f"bound {bound_ms:.4f} ms ({bound_by})")
+                row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None)
+    return row
+
+
+#: the grammar head's boosted ids (grammar_head_case): four timestamps
+#: ts_base + 10.. and four text ids 1000..
+GRAMMAR_TS_OFF, GRAMMAR_TEXT = 10, 1000
+
+
+def grammar_head_case(bk, d, v, ts_base, eot, seed):
+    """numpy inputs of the fused head's grammar mode whose logits are exact
+    in any summation order: x rows are ±1 patterns of zero mean (the
+    LayerNorm, γ = 1 and β = 0, returns them exactly in bf16) and the table
+    holds multiples of 1/8, so every dot is an exact f32 sum and equal
+    logits are real ties. Rows (bk ≥ 5):
+
+    0. free; four timestamp rows aligned with its pattern score d/2 each,
+       far above any text logit: the grammar forces a timestamp, and the
+       four tie — the lower id first;
+    1. need_ts; four text rows aligned with its pattern score d/2, and the
+       mask bans them (a kernel that ignores it returns them);
+    2. need_text, with row 0's pattern: the boosted timestamps are banned;
+    3. min_ts one past the first boosted timestamp, row 0's pattern: the
+       three above it are forced, the one below is banned (a kernel that
+       puts the floor one off keeps it or drops the next);
+    4. min_ts = V, every timestamp masked, row 0's pattern: the masked
+       boosted timestamps must add nothing to the region's sum, so the row
+       is not forced;
+    5+. random patterns and kinds.
+
+    → (x (bk, d), ln_g, ln_b, emb (v, d) as f32 values of bf16 elements,
+    sup (v,), ts_state (bk, 4) int32)."""
+    rng = np.random.default_rng(seed)
+
+    def pattern():
+        return np.where(rng.permutation(d) % 2 == 0, 1.0, -1.0)
+
+    a, b = pattern(), pattern()
+    x = np.stack([a, b, a, a, a] + [pattern() for _ in range(bk - 5)])
+    emb = np.clip(np.round(rng.standard_normal((v, d)) * 8), -32, 32) / 8
+    emb[ts_base + GRAMMAR_TS_OFF + np.arange(4)] = a * 0.5
+    emb[GRAMMAR_TEXT + np.arange(4)] = b * 0.5
+    sup = np.zeros(v)
+    sup[rng.choice(np.arange(GRAMMAR_TEXT + 4, eot), 200, replace=False)] = -1e30
+    ts = np.zeros((bk, 4), np.int64)
+    ts[:, 2] = ts_base
+    ts[1, 0] = 1
+    ts[2, 1] = 1
+    ts[3, 2] = ts_base + GRAMMAR_TS_OFF + 1
+    ts[4, 2] = v
+    for r in range(5, bk):
+        kind = r % 4
+        if kind < 2:
+            ts[r, kind] = 1
+        elif kind == 2:
+            ts[r, 2] = rng.integers(ts_base, v)
+    f32 = np.float32
+    return (x.astype(f32), np.ones(d, f32), np.zeros(d, f32), emb.astype(f32), sup.astype(f32),
+            ts.astype(np.int32))
+
+
+def grammar_decisions(val, tok, ts_base, eot):
+    """The rules grammar_head_case's first five rows must show in their
+    candidates (numpy (bk, k) values and ids, k ≥ 4) → {rule: held}."""
+    boosted = ts_base + GRAMMAR_TS_OFF + np.arange(4)
+    live = val[:5] > -1e29
+    return {
+        "forced timestamps, tie to the lower id": list(tok[0, :4]) == list(boosted),
+        "need_ts bans text": bool((tok[1] >= eot).all()),
+        "need_text bans timestamps": bool((tok[2] < ts_base).all()),
+        "min_ts floor": list(tok[3, :3]) == list(boosted[1:]) and boosted[0] not in tok[3],
+        "masked region adds nothing": bool((tok[4] < ts_base).all()),
+        "every candidate live": bool(live.all()),
+    }
 
 
 def _gpt_step_inputs(torch, dev, cfg, t_pad, trap, seed):
@@ -827,38 +1086,155 @@ def compare_pipeline_depths(torch, dev, model, counters, depths=(1, 2, 3)):
               f"(totals {', '.join(f'{t[2]:.2f}' for t in runs[d])})")
 
 
-def serve(torch, dev, engine, requests, counters, path):
-    """Run `requests` (audio ms, token cap, detect) through the engine with
-    every counter set to 0 just before; → the counts just after. Each
-    request must run LayerNorm 65 and flash 32 times; on the fused path the
-    step and the head once per decode step each."""
+class GrammarLaunches:
+    """``fused_logits_topk``'s grammar-mode launches as a counter."""
+
+    __name__ = "fused_logits_topk(grammar)"
+
+    @property
+    def launches(self):
+        from wis_tpu_torch.ops.fused_logits import fused_logits_topk
+
+        return fused_logits_topk.grammar_launches
+
+    @launches.setter
+    def launches(self, n):
+        from wis_tpu_torch.ops.fused_logits import fused_logits_topk
+
+        fused_logits_topk.grammar_launches = n
+
+
+def request(torch, dev, counters, path, call):
+    """call() → a TranscriptionResult or a list of them, with every counter
+    set to 0 just before; prints one line; → (results, {counter: launches
+    just after}, emitted text tokens per result)."""
     for c in counters:
         c.launches = 0
-    for i, (ms, cap, detect) in enumerate(requests):
-        before = [c.launches for c in counters]
-        torch.cuda.reset_peak_memory_stats(dev)
-        res = engine.transcribe(
-            _audio_i16(ms, i), beam_size=5, max_tokens=cap, detect_language=detect
-        )
-        n = [c.launches - b for c, b in zip(counters, before)]
-        # the seeded-random model has no vocabulary files: its text is the
-        # placeholder rendering, one "t<id>" piece per emitted token
-        n_tok = len(re.findall(r"t\d+", res.text))
-        counts = ", ".join(f"{c.__name__} {k}" for c, k in zip(counters, n))
-        print(
-            f"{path} request {ms / 1000:.2f}s beam5 cap{cap} detect={detect}: "
-            f"infer {res.infer_time_ms:.2f} ms (asr_dispatch "
-            f"{res.timings['asr_dispatch']:.2f} ms), tokens {n_tok}, "
-            f"language {res.language}, launches: {counts}, max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB"
-        )
-        if n[0] < MIN_LN or n[1] < MIN_FLASH:
-            raise AssertionError(f"request ran {n[0]} LN / {n[1]} flash launches")
-        if len(n) > 2 and not (n[2] == n[3] and n[2] >= max(1, n_tok - 1)):
-            raise AssertionError(f"request of {n_tok} tokens ran {n[2]} steps / {n[3]} heads")
-        if not 1 <= n_tok <= cap or res.audio_duration_ms != ms:
-            raise AssertionError(f"bad result: {n_tok} tokens, {res.audio_duration_ms} ms")
-    return [c.launches for c in counters]
+    torch.cuda.reset_peak_memory_stats(dev)
+    results = call()
+    n = {c.__name__: c.launches for c in counters}
+    results = results if isinstance(results, list) else [results]
+    # the seeded-random model has no vocabulary files: its text is the
+    # placeholder rendering, one "t<id>" piece per emitted token
+    n_tok = [len(re.findall(r"t\d+", r.text)) for r in results]
+    res = results[0]
+    print(
+        f"{path}: infer {res.infer_time_ms:.2f} ms (asr_dispatch "
+        f"{res.timings['asr_dispatch']:.2f} ms), tokens {n_tok}, language {res.language}, "
+        f"launches: {', '.join(f'{k} {v}' for k, v in n.items())}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB"
+    )
+    return results, n, n_tok
+
+
+def expect(what, cond):
+    if not cond:
+        raise AssertionError(what)
+
+
+def serve(torch, dev, engine, counters):
+    """Every ASR request kind through the engine, each with the counters
+    set to 0 just before it and read just after; each kind's launches
+    checked against what its path must run. → {kind: launches}."""
+    from wis_tpu_torch.runtime.engine import ASRRequest
+
+    s = engine.settings
+    out = {}
+
+    def transcribe(ms, seed, **kw):
+        return lambda: engine.transcribe(_audio_i16(ms, seed), beam_size=5, **kw)
+
+    def encoder_runs(n, groups=1):
+        expect(f"{groups} encoder calls: {n}",
+               n["layer_norm_cuda"] == MIN_LN * groups and n["flash_attention_packed"] == MIN_FLASH * groups)
+
+    # the eager decoder: ancestry_attention once per layer and step,
+    # int8_matmul for the 64 cross-KV, the 256 prefill and 256 per step
+    s.fused_decode = "off"
+    engine.transcribe(_audio_i16(1000, 99), beam_size=5, max_tokens=4)  # warm-up
+    res, n, tok = request(torch, dev, counters, "eager request 3.84s beam5 cap32",
+                          transcribe(3840, 0, max_tokens=32))
+    steps = n["ancestry_attention"] // 32
+    encoder_runs(n)
+    expect(f"eager launches {n}", n["ancestry_attention"] == 32 * steps and steps >= tok[0] - 1
+           and n["int8_matmul"] == INT8_CALL + INT8_PASS * steps
+           and n["fused_decode_step"] == n["fused_logits_topk"] == 0)
+    print(f"eager request: {steps} decode steps, ancestry_attention {n['ancestry_attention']} "
+          f"(32 per step), int8_matmul {n['int8_matmul']} ({INT8_CALL} + {INT8_PASS} per step)")
+    out["eager"] = n
+
+    # the main path: the fused step and head once per decode step each,
+    # int8_matmul 320 per request and 256 more with detection
+    s.fused_decode = "auto"
+    engine.transcribe(_audio_i16(1000, 99), beam_size=5, max_tokens=4)  # warm-up
+    total = {}
+    for i, (ms, cap, detect) in enumerate([r + (False,) for r in REQUESTS] + [(3840, 32, True)]):
+        res, n, tok = request(
+            torch, dev, counters, f"fused request {ms / 1000:.2f}s beam5 cap{cap} detect={detect}",
+            transcribe(ms, i, max_tokens=cap, detect_language=detect))
+        encoder_runs(n)
+        expect(f"fused launches {n}", n["fused_decode_step"] == n["fused_logits_topk"] >= max(1, tok[0] - 1)
+               and n["int8_matmul"] == INT8_CALL + INT8_PASS * detect
+               and n["ancestry_attention"] == n["fused_logits_topk(grammar)"] == 0)
+        expect(f"bad result: {tok} tokens, {res[0].audio_duration_ms} ms",
+               1 <= tok[0] <= cap and res[0].audio_duration_ms == ms)
+        total = {k: total.get(k, 0) + v for k, v in n.items()}
+    out["fused"] = total
+
+    # timestamps: the head runs its grammar mode at every step
+    engine.transcribe(_audio_i16(1000, 98), beam_size=5, max_tokens=4, timestamps=True)
+    res, n, tok = request(torch, dev, counters, "timestamps request 3.84s beam5 cap32",
+                          transcribe(3840, 10, max_tokens=32, timestamps=True))
+    encoder_runs(n)
+    expect(f"timestamp launches {n}", n["fused_logits_topk(grammar)"] == n["fused_logits_topk"]
+           == n["fused_decode_step"] >= 1 and n["int8_matmul"] == INT8_CALL)
+    expect(f"segments {res[0].segments}", res[0].segments is not None and all(
+        0.0 <= g["start"] <= g["end"] <= 30.0 for g in res[0].segments))
+    print(f"timestamps request: {len(res[0].segments)} segments {res[0].segments[:2]}")
+    out["timestamps"] = n
+
+    # word timestamps: the alignment call encodes again and runs its own
+    # cross-KV and teacher-forced pass
+    engine.transcribe(_audio_i16(1000, 97), beam_size=5, max_tokens=4, word_timestamps=True)
+    res, n, tok = request(torch, dev, counters, "word-timestamps request 3.84s beam5 cap32",
+                          transcribe(3840, 11, max_tokens=32, word_timestamps=True))
+    encoder_runs(n, groups=2)
+    expect(f"word-timestamp launches {n}", n["int8_matmul"] == 2 * INT8_CALL)
+    expect(f"words {res[0].words}", bool(res[0].words))
+    print(f"word-timestamps request: alignment pass int8_matmul {n['int8_matmul'] - INT8_CALL} "
+          f"launches, word_align {res[0].timings['word_align']:.2f} ms, {len(res[0].words)} "
+          f"words {res[0].words[:2]}")
+    out["words"] = n
+
+    # long-form: 13 windows of 22 s in 4 groups of concurrent_gpu_chunks=4
+    # (the last padded), the fused step at BK = 4 · 5 = 20
+    engine.transcribe(_audio_i16(45000, 96), beam_size=5, max_tokens=4)  # warm-up
+    res, n, tok = request(torch, dev, counters, "long-form request 180s beam5 cap64",
+                          transcribe(180000, 12, max_tokens=64))
+    groups = -(-13 // s.concurrent_gpu_chunks)
+    encoder_runs(n, groups)
+    expect(f"long-form launches {n}", n["int8_matmul"] == INT8_CALL * groups
+           and n["fused_decode_step"] == n["fused_logits_topk"] >= groups)
+    keys = [k for k in engine._programs if k[-1] is True]  # (…, n_samples, chunked)
+    expect(f"long-form programs {keys}", keys and all(k[2] == 4 and k[8] for k in keys))
+    print(f"long-form request: 13 windows, {groups} groups of 4, fused step at BK="
+          f"{4 * keys[0][1]}, {n['fused_decode_step']} steps, text of {tok[0]} tokens")
+    out["long"] = n
+
+    # four coalesced requests: one program call, BK = 20
+    def batch(seed, cap):
+        return [ASRRequest(audio=_audio_i16(3840, seed + i), model="large", beam_size=5,
+                           max_tokens=cap) for i in range(4)]
+
+    engine.transcribe_coalesced(batch(200, 4))  # warm-up
+    res, n, tok = request(torch, dev, counters, "coalesced batch 4 × 3.84s beam5 cap32",
+                          lambda: engine.transcribe_coalesced(batch(300, 32)))
+    encoder_runs(n)
+    expect(f"coalesced launches {n}", n["int8_matmul"] == INT8_CALL
+           and n["fused_decode_step"] == n["fused_logits_topk"] >= 1
+           and len(res) == 4 and all(1 <= t <= 32 for t in tok))
+    out["coalesced"] = n
+    return out
 
 
 def check_encode(torch, dev, loaded):
@@ -920,7 +1296,9 @@ def main() -> int:
     from wis_tpu_torch.ops.fused_gpt import fused_gpt_step
     from wis_tpu_torch.ops.fused_gpt_head import fused_gpt_head
     from wis_tpu_torch.ops.fused_logits import fused_logits_topk
+    from wis_tpu_torch.ops.decode_attn import ancestry_attention
     from wis_tpu_torch.ops.layernorm import layer_norm_cuda
+    from wis_tpu_torch.ops.quant import int8_matmul
     from wis_tpu_torch.runtime.engine import WhisperEngine
     from wis_tpu_torch.runtime.residency import ModelRegistry
     from wis_tpu_torch.settings import APISettings
@@ -943,6 +1321,8 @@ def main() -> int:
 
     ln = check_layer_norm(torch, dev)
     fl = check_flash(torch, dev)
+    i8 = check_int8_matmul(torch, dev)
+    anc = check_ancestry_attention(torch, dev)
 
     settings = APISettings(
         whisper_model_default="large",
@@ -963,15 +1343,11 @@ def main() -> int:
     )
     step = check_fused_step(torch, dev, loaded.cfg, packed)
     head = check_fused_head(torch, dev, loaded.cfg)
+    grammar = check_grammar_head(torch, dev, loaded.cfg)
 
-    counters = (layer_norm_cuda, flash_attention_packed, fused_decode_step, fused_logits_topk)
-    settings.fused_decode = "off"
-    engine.transcribe(_audio_i16(1000, 99), beam_size=5, max_tokens=4)  # warm-up
-    serve(torch, dev, engine, [(3840, 32, False)], counters[:2], "eager")
-    settings.fused_decode = "auto"
-    engine.transcribe(_audio_i16(1000, 99), beam_size=5, max_tokens=4)  # warm-up
-    requests = [(ms, cap, False) for ms, cap in REQUESTS] + [(3840, 32, True)]
-    launches = serve(torch, dev, engine, requests, counters, "fused")
+    counters = (layer_norm_cuda, flash_attention_packed, int8_matmul, ancestry_attention,
+                fused_decode_step, fused_logits_topk, GrammarLaunches())
+    served = serve(torch, dev, engine, counters)
     check_encode(torch, dev, loaded)
 
     t0 = time.perf_counter()
@@ -1010,19 +1386,31 @@ def main() -> int:
         dict(name="flash_attention_packed", source="wis_tpu_torch/csrc/flash_attention.cu",
              replaces="wis_tpu/ops/flash.py:121", **fl),
         dict(name="fused_decode_step", source="wis_tpu_torch/csrc/fused_decode.cu",
-             replaces="wis_tpu/ops/fused_decode.py:184", **step[128]),
+             replaces="wis_tpu/ops/fused_decode.py:184", **step[(128, 1)]),
         dict(name="fused_logits_topk", source="wis_tpu_torch/csrc/fused_logits.cu",
              replaces="wis_tpu/ops/fused_logits.py:48", **head[True]),
         dict(name="fused_gpt_step", source="wis_tpu_torch/csrc/fused_gpt.cu",
              replaces="wis_tpu/ops/fused_gpt.py:122", **gpt_step[t_full]),
         dict(name="fused_gpt_head", source="wis_tpu_torch/csrc/fused_gpt_head.cu",
              replaces="wis_tpu/ops/fused_gpt_head.py:56", **gpt_head),
+        dict(name="int8_matmul", source="wis_tpu_torch/csrc/int8_matmul.cu",
+             replaces="wis_tpu/ops/quant_pallas.py:41", **i8[(1500, 1280, 1280)]),
+        dict(name="ancestry_attention", source="wis_tpu_torch/csrc/ancestry_attention.cu",
+             replaces="wis_tpu/ops/decode_attn.py:83", **anc[5]),
+        dict(name="fused_logits_topk(grammar)", source="wis_tpu_torch/csrc/fused_logits.cu",
+             replaces="wis_tpu/ops/fused_logits.py:48", **grammar),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # the whisper rows count the fused ASR requests; the step counts the
-    # default XTTS stream, the head the fused-head stream
-    launches = list(launches) + [step_n[0], head_n[1]]
+    # the whisper rows and int8_matmul count the fused ASR requests (the
+    # main path); ancestry_attention the eager request, the grammar head the
+    # timestamp request; the GPT step the default XTTS stream, the GPT head
+    # the fused-head stream
+    fused = served["fused"]
+    launches = [fused["layer_norm_cuda"], fused["flash_attention_packed"],
+                fused["fused_decode_step"], fused["fused_logits_topk"], step_n[0], head_n[1],
+                fused["int8_matmul"], served["eager"]["ancestry_attention"],
+                served["timestamps"]["fused_logits_topk(grammar)"]]
     for row, n in zip(rows, launches):
         row.update(route="cuda", launches=n)
     print(json.dumps({"kernels": [{key: row[key] for key in keys} for row in rows]}))

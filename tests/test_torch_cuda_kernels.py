@@ -269,6 +269,7 @@ def _step_case(dev, cfg, bk, n_seq, t_cache, s_audio, xa_int8, seed):
         (5, 1, 256, 1500, False),
         (10, 2, 128, 1500, True),  # two windows, block-diagonal cross-attention
         (10, 2, 256, 100, False),  # a short window: pad columns masked
+        (20, 4, 256, 1500, True),  # four windows: long-form and coalesced batches
     ],
 )
 def test_fused_step_kernel_matches_plain(dev, bk, n_seq, t_cache, s_audio, xa_int8):
@@ -372,9 +373,9 @@ def test_fused_head_refuses_what_the_kernel_does_not_take(dev):
     from wis_tpu_torch.ops.fused_logits import build_fused_logits_topk, fused_logits_topk
 
     cfg = WhisperConfig(name="narrow", n_text_state=128, n_text_head=2)
-    with pytest.raises(NotImplementedError, match="grammar"):
-        build_fused_logits_topk(cfg, bk=5, k=6, grammar=True)
     x, g, b, emb, sup = _head_inputs(dev, 5, 1000, seed=0)
+    with pytest.raises(ValueError, match="grammar=True takes ts_state"):
+        build_fused_logits_topk(cfg, bk=5, k=6, grammar=True)(x, g, b, emb, sup)
     before = fused_logits_topk.launches
     for args, kw, match in (
         ((x.bfloat16(), g, b, emb, sup), dict(k=6), "x must be f32"),
@@ -382,6 +383,8 @@ def test_fused_head_refuses_what_the_kernel_does_not_take(dev):
         ((x, g, b, emb, sup[:-1]), dict(k=6), "sup must be f32"),
         ((x, g, b, emb, sup), dict(k=9), "k=9"),
         ((torch.zeros((33, 128), device=dev), g, b, emb, sup), dict(k=6), "BK=33"),
+        ((x, g, b, emb, sup), dict(k=6, ts_state=torch.zeros((5, 4), device=dev)),
+         "ts_state must be int32"),
     ):
         with pytest.raises(ValueError, match=match):
             fused_logits_topk(*args, **kw)
@@ -532,3 +535,202 @@ def test_fused_gpt_head_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="working dtype"):
         fused_gpt_head(*good, cfg=cfg, dtype=torch.float32)
     assert fused_gpt_head.launches == before
+
+
+# --------------------------------------------------------------------------- #
+# The fused head's grammar mode, int8_matmul and ancestry_attention
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("bk", [5, 20])
+@pytest.mark.parametrize("int8", [False, True])
+def test_fused_head_grammar_matches_plain(dev, bk, int8):
+    """On inputs whose logits are exact (chip_smoke.grammar_head_case) the
+    kernel's ids and values equal the plain version's, lse within 1e-5
+    relative (f32 sums in another order), and the grammar's decisions
+    hold: masks, the force rule, the tie, the min_ts floor, a masked
+    region that adds nothing."""
+    from chip_smoke import grammar_decisions, grammar_head_case
+    from wis_tpu_torch.models.whisper.tokenizer import EOT, V2_LAYOUT
+    from wis_tpu_torch.ops.fused_logits import fused_logits_topk, fused_logits_topk_plain
+    from wis_tpu_torch.ops.quant import quantize_rows
+
+    v, ts_base = V2_LAYOUT.n_vocab, V2_LAYOUT.timestamp_base
+    x, g, b, emb, sup, ts = (torch.from_numpy(a).to(dev) for a in
+                             grammar_head_case(bk, 256, v, ts_base, EOT, seed=bk))
+    emb = emb.to(torch.bfloat16)
+    table = quantize_rows(emb) if int8 else emb
+    for full in (False, True):
+        kw = dict(k=6, full_lse=full, ts_state=ts, ts_base=ts_base, eot=EOT)
+        before = fused_logits_topk.launches
+        val, tok, lse = fused_logits_topk(x, g, b, table, sup, **kw)
+        want_val, want_tok, want_lse = fused_logits_topk_plain(x, g, b, table, sup, **kw)
+        torch.cuda.synchronize()
+        assert fused_logits_topk.launches == before + 1
+        assert torch.equal(tok, want_tok)
+        assert torch.equal(val, want_val)
+        assert torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5)
+        held = grammar_decisions(val.cpu().numpy(), tok.cpu().numpy(), ts_base, EOT)
+        assert all(held.values()), held
+
+
+@pytest.mark.parametrize(
+    "m,k,n",
+    [
+        (1, 128, 128),
+        (5, 1280, 1280),  # a decode step's rows
+        (13, 1280, 5120),  # ragged M
+        (20, 5120, 1280),
+        (40, 256, 384),
+        (289, 1024, 4096),  # the XTTS prefill
+        (1500, 1280, 1280),  # one window's cross-KV
+    ],
+)
+def test_int8_matmul_matches_plain(dev, m, k, n):
+    """Each element within 2 bf16 ulps of the plain version plus 2⁻⁸ of
+    its largest magnitude (f32 sums of the same bf16 products in another
+    order, each side rounded once to bf16)."""
+    from wis_tpu_torch.ops.quant import int8_matmul, int8_matmul_plain, quantize_weight
+
+    rng = np.random.default_rng(m + k + n)
+    x = _randn(rng, (m, k), dev, torch.bfloat16)
+    leaf = quantize_weight(_randn(rng, (k, n), dev, torch.float32, scale=0.05))
+    before = int8_matmul.launches
+    got = int8_matmul(x, leaf["q"], leaf["s"])
+    want = int8_matmul_plain(x, leaf["q"], leaf["s"])
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    r = want.float()
+    over = (got.float() - r).abs() > 2 * _bf16_ulp(r) + 2.0 ** -8 * float(r.abs().max())
+    assert not bool(over.any()), f"{int(over.sum())} elements beyond tolerance"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("m,k,n", [(5, 5120, 1280), (1500, 1280, 1280)])
+def test_qmatmul_float_activations_run_the_kernel(dev, dtype, m, k, n):
+    """Activations other than bf16 (an XTTS model built in f32) take the
+    kernel too, one launch per product, the output in x's dtype: x rounds
+    to bf16 as in the plain version, the kernel stores f32, so the two
+    differ only by the order of the f32 sums (and f16's own rounding)."""
+    from wis_tpu_torch.ops.quant import int8_matmul, int8_matmul_plain, qmatmul, quantize_weight
+
+    rng = np.random.default_rng(m + k)
+    x = _randn(rng, (m, k), dev, dtype)
+    leaf = quantize_weight(_randn(rng, (k, n), dev, torch.float32, scale=0.05))
+    before = int8_matmul.launches
+    got = qmatmul(x, leaf)
+    want = int8_matmul_plain(x, leaf["q"], leaf["s"])
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    r = want.float()
+    tol = 1e-5 * float(r.abs().max()) + (_bf16_ulp(r) / 8 if dtype == torch.float16 else 0)
+    over = (got.float() - r).abs() > tol
+    assert not bool(over.any()), f"{int(over.sum())} elements beyond tolerance"
+
+
+def test_qmatmul_routes_int8_leaves_to_the_kernel(dev):
+    """qmatmul on the card: a stacked leaf's layer view meeting the gate
+    launches the kernel once per call, leading dims kept; a bf16 weight
+    and a shape off the gate do not; the wrapper refuses what the kernel
+    does not take."""
+    from wis_tpu_torch.ops.quant import int8_matmul, int8_matmul_plain, qmatmul, quantize_weight
+
+    rng = np.random.default_rng(3)
+    leaf = quantize_weight(_randn(rng, (2, 256, 384), dev, torch.float32, scale=0.05))
+    x = _randn(rng, (2, 3, 256), dev, torch.bfloat16)
+    before = int8_matmul.launches
+    got = qmatmul(x, {"q": leaf["q"][1], "s": leaf["s"][1]})
+    assert int8_matmul.launches == before + 1 and got.shape == (2, 3, 384)
+    want = int8_matmul_plain(x.reshape(6, 256), leaf["q"][1], leaf["s"][1]).reshape(2, 3, 384)
+    assert torch.allclose(got.float(), want.float(), rtol=2 ** -7, atol=2 ** -8 * float(want.abs().max()))
+    qmatmul(x, leaf["q"][1].bfloat16())
+    odd = quantize_weight(_randn(rng, (96, 128), dev, torch.float32))
+    qmatmul(x[..., :96].contiguous(), odd)
+    assert int8_matmul.launches == before + 1
+    for args, match in (
+        ((x.reshape(6, 256).to(torch.int32), leaf["q"][1], leaf["s"][1]), "float tensor"),
+        ((x[0, :, :96].contiguous(), odd["q"], odd["s"]), "multiple of 128"),
+        ((x.reshape(6, 256), leaf["q"][1], leaf["s"][1].bfloat16()), "f32"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            int8_matmul(*args)
+    assert int8_matmul.launches == before + 1
+
+
+def _anc_case(dev, bk, beams, h, dh, t, pos, seed):
+    """Caches with random values up to pos and, past it, keys of ±1e4 and
+    values of 1e4 (a kernel that reads a column past pos is far off); anc
+    scrambled within each group of ``beams`` rows up to pos, -1 after."""
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (bk, h, dh), dev, torch.bfloat16)
+    kc = _randn(rng, (bk, h, dh, t), dev, torch.float32, scale=0.5)
+    vc = _randn(rng, (bk, h, dh, t), dev, torch.float32)
+    kc[..., pos + 1:] = 1e4 * torch.sign(kc[..., pos + 1:])
+    vc[..., pos + 1:] = 1e4
+    anc = np.full((bk, t), -1, np.int32)
+    for r in range(bk):
+        base = (r // beams) * beams
+        anc[r, : pos + 1] = base + rng.integers(0, beams, pos + 1)
+    return q, kc.to(torch.bfloat16), vc.to(torch.bfloat16), torch.from_numpy(anc).to(dev)
+
+
+@pytest.mark.parametrize("bk,beams,t,pos", [(5, 5, 128, 70), (20, 5, 256, 200), (1, 1, 128, 0)])
+def test_ancestry_attention_matches_plain(dev, bk, beams, t, pos):
+    """Within 2 bf16 ulps plus 2⁻⁸ of the output's largest magnitude (both
+    take f32 scores, softmax and sums in another order and round once);
+    the trap columns past pos are never read."""
+    from wis_tpu_torch.ops.decode_attn import ancestry_attention, ancestry_attention_plain
+
+    q, kc, vc, anc = _anc_case(dev, bk, beams, 20, 64, t, pos, seed=bk + t)
+    before = ancestry_attention.launches
+    got = ancestry_attention(q, kc, vc, anc, pos)
+    want = ancestry_attention_plain(q, kc, vc, anc, pos)
+    torch.cuda.synchronize()
+    assert ancestry_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    r = want.float()
+    assert float(r.abs().max()) < 10  # the plain version reads no trap either
+    over = (got.float() - r).abs() > 2 * _bf16_ulp(r) + 2.0 ** -8 * float(r.abs().max())
+    assert not bool(over.any()), f"{int(over.sum())} elements beyond tolerance"
+
+
+def test_eager_decoder_runs_the_new_kernels(dev):
+    """A narrow int8 bf16 decoder step on the card with an ancestry map runs
+    ancestry_attention once per layer and int8_matmul for its 8 int8
+    products per layer, and agrees with the same step through the plain
+    versions."""
+    from wis_tpu_torch.models.whisper import model as model_mod
+    from wis_tpu_torch.models.whisper.config import WhisperConfig
+    from wis_tpu_torch.models.whisper.weights import random_params
+    from wis_tpu_torch.ops import quant
+    from wis_tpu_torch.ops.decode_attn import ancestry_attention, ancestry_attention_plain
+
+    cfg = WhisperConfig(name="narrow", n_audio_state=256, n_audio_head=4, n_audio_layer=1,
+                        n_text_state=256, n_text_head=4, n_text_layer=2)
+    params = quant.quantize_whisper_params(
+        random_params(cfg, seed=1, device=dev, dtype=torch.bfloat16))
+    rng = np.random.default_rng(4)
+    bq, k, t, pos = 2, 5, 64, 9
+    shape = (cfg.n_text_layer, bq, 4, 64, cfg.n_audio_ctx)
+    xa = tuple(_randn(rng, shape, dev, torch.bfloat16, scale=0.5) for _ in range(2))
+    ck = _randn(rng, (cfg.n_text_layer, bq * k, 4, 64, t), dev, torch.bfloat16)
+    cv = _randn(rng, (cfg.n_text_layer, bq * k, 4, 64, t), dev, torch.bfloat16)
+    anc = torch.full((bq, k, t), -1, dtype=torch.long, device=dev)
+    anc[..., : pos + 1] = torch.from_numpy(rng.integers(0, k, (bq, k, pos + 1))).to(dev)
+    tokens = torch.from_numpy(rng.integers(0, 1000, bq * k)).to(dev)
+
+    def step():
+        cache = model_mod.DecoderCache(ck.clone(), cv.clone(), pos)
+        with torch.inference_mode():
+            return model_mod.decode_step(params, tokens, cache, xa, cfg, anc=anc)[0]
+
+    counts = (ancestry_attention.launches, quant.int8_matmul.launches)
+    got = step()
+    assert (ancestry_attention.launches - counts[0], quant.int8_matmul.launches - counts[1]) == (
+        cfg.n_text_layer, 8 * cfg.n_text_layer)
+    with mock.patch.object(model_mod, "ancestry_attention", ancestry_attention_plain), \
+            mock.patch.object(quant, "int8_matmul", quant.int8_matmul_plain):
+        want = step()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).norm() / want.norm()) <= STEP_REL_NORM

@@ -117,14 +117,54 @@ def test_head_plain_matches_jax_kernel(int8, full_lse, k):
 
 
 def test_head_refuses_what_it_does_not_take():
-    with pytest.raises(NotImplementedError, match="grammar"):
-        tl.build_fused_logits_topk(PORT_CFG, bk=BK, k=6, grammar=True)
     with pytest.raises(ValueError, match="k=9"):
         tl.build_fused_logits_topk(PORT_CFG, bk=BK, k=9)
     x, g, b, emb, sup, _, _ = _inputs()
     head = tl.build_fused_logits_topk(PORT_CFG, bk=BK, k=6, emb_int8=True)
     with pytest.raises(ValueError, match="emb_int8"):
         head(*_port(x, g, b, emb, sup))
+    # a grammar head needs its ts_state, and a plain head takes none
+    with pytest.raises(ValueError, match="grammar=True takes ts_state"):
+        tl.build_fused_logits_topk(PORT_CFG, bk=BK, k=6, grammar=True)(*_port(x, g, b, emb, sup))
+    ts = torch.zeros((BK, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="grammar=False takes ts_state None"):
+        tl.build_fused_logits_topk(PORT_CFG, bk=BK, k=6)(*_port(x, g, b, emb, sup), ts)
     meta = torch.empty((BK, D), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tl.fused_logits_topk(meta, meta[0], meta[0], meta, meta[0], k=6)
+
+
+# --------------------------------------------------------------------------- #
+# Grammar mode: inputs whose logits are exact (chip_smoke.grammar_head_case:
+# ±1 LayerNorm outputs against a table of multiples of 1/8), so the two sides
+# must agree on every id and value; lse within 1e-5 (f32 sums in another
+# order and chunking).
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("bk", [5, 10])
+@pytest.mark.parametrize("full_lse", [False, True])
+@pytest.mark.parametrize("int8", [False, True])
+def test_grammar_head_plain_matches_jax_kernel(int8, full_lse, bk):
+    from chip_smoke import grammar_decisions, grammar_head_case
+    from wis_tpu_torch.models.whisper.tokenizer import EOT, layout_for_vocab
+
+    ts_base = layout_for_vocab(V).timestamp_base
+    x, g, b, emb, sup, ts = grammar_head_case(bk, D, V, ts_base, EOT, seed=bk)
+    if int8:
+        table = jax.tree.map(np.asarray, jax_quantize_rows(jnp.asarray(emb, jnp.bfloat16)))
+        j_emb = {"q": jnp.asarray(table["q"]), "s": jnp.asarray(table["s"])}
+    else:
+        table, j_emb = emb, jnp.asarray(emb, jnp.bfloat16)
+    kw = dict(bk=bk, k=6, grammar=True, ts_base=ts_base, eot=EOT, full_lse=full_lse,
+              emb_int8=int8)
+    head = jl.build_fused_logits_topk(JAX_CFG, **kw)
+    want = jax.jit(head)(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b), j_emb,
+                         jnp.asarray(sup), jnp.asarray(ts))
+    want_val, want_tok, want_lse = (np.asarray(t) for t in want)
+    port = tl.build_fused_logits_topk(PORT_CFG, **kw)
+    got_val, got_tok, got_lse = (
+        t.numpy() for t in port(*_port(x, g, b, table, sup), torch.from_numpy(ts)))
+    np.testing.assert_array_equal(got_tok, want_tok)
+    np.testing.assert_allclose(got_val, want_val, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_lse, want_lse, rtol=1e-5, atol=1e-5)
+    held = grammar_decisions(got_val, got_tok, ts_base, EOT)
+    assert all(held.values()), held

@@ -12,8 +12,6 @@ tests/test_torch_whisper.py holds the decoder to at the same weights.
 checked this way.)"""
 
 import asyncio
-import io
-import wave
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +24,7 @@ from torch_port_helpers import (
     audio_i16,
     jax_params,
     port_params,
+    wav_bytes,
 )
 from wis_tpu.decoding.fused import build_asr_program as jax_program
 from wis_tpu.models.whisper.tokenizer import (
@@ -170,15 +169,28 @@ def test_generate_with_midloop_finishes(beam, renorm, length_penalty):
         assert (np.asarray(want.lengths) < 10).any()
 
 
-def test_timestamp_grammar_and_fused_paths_raise():
-    """What is not ported yet raises: the timestamp grammar and on-device
-    long-form windows (the fused step is ported and builds)."""
-    kw = dict(beam_size=1, batch=1, max_new_tokens=4, prompt_len=4,
+def test_program_variants_build_and_run():
+    """Every variant the engine asks for builds — the fused step, the
+    timestamp grammar, on-device long-form windows — and a chunked program
+    with the grammar runs: packed int32 of the documented width for each
+    window cut from one segment."""
+    from wis_tpu_torch.audio.chunking import CHUNK_LEN, STRIDE_LEFT, STRIDE_RIGHT
+
+    kw = dict(beam_size=1, batch=2, max_new_tokens=4, prompt_len=3,
               suppress_tokens=(), begin_suppress_tokens=())
-    for extra in ({"with_timestamps": True}, {"chunked": True}):
-        with pytest.raises(NotImplementedError):
-            build_asr_program(PORT_CFG, **kw, **extra)
-    assert callable(build_asr_program(PORT_CFG, **kw, fused_step=True))
+    for extra in ({"with_timestamps": True}, {"fused_step": True},
+                  {"with_timestamps": True, "fused_step": True}):
+        assert callable(build_asr_program(PORT_CFG, **kw, **extra))
+    n_samp = (CHUNK_LEN - STRIDE_LEFT - STRIDE_RIGHT) + CHUNK_LEN
+    prog = build_asr_program(PORT_CFG, **kw, with_timestamps=True, chunked=True,
+                             n_samples=n_samp)
+    prompts = np.asarray([build_prompt("en", notimestamps=False)] * 2, np.int32)
+    ctl = pack_ctl(prompts, np.zeros(2, np.int32), 4)
+    got = prog(port_params(False, emb_scale=EMB_SCALE),
+               torch.from_numpy(audio_i16(n_samp, seed=3)[0]), torch.from_numpy(ctl))
+    assert got.dtype == torch.int32 and got.shape == (2, packed_width(1, 4))
+    ts_base = 50364
+    assert (got[:, 0] >= ts_base).all()  # each window opens with a timestamp
 
 
 # --------------------------------------------------------------------------- #
@@ -361,7 +373,7 @@ def test_transcribe_fused_text_equal(fused_engines, seconds, beam, detect, seed)
     assert got.language == want.language
     assert port._use_fused(1, beam) and port._xa_int8()
     fused_keys = [key for key in port._programs if key[1] == beam]
-    assert fused_keys and all(key[7] for key in fused_keys)  # (…, max_new, fused, n_samples)
+    assert fused_keys and all(key[8] for key in fused_keys)  # (…, max_new, fused, n_samples, chunked)
     assert port.registry.get("tiny").packed is not None
 
 
@@ -391,31 +403,34 @@ def test_engine_picks_the_decode_path():
     assert not eng._xa_int8()
 
 
-def test_engine_rejects_what_is_not_ported(engines):
-    from wis_tpu_torch.runtime.engine import WhisperEngine
+def test_engine_serves_what_was_not_ported(engines):
+    """Audio over 30 s, timestamps, word timestamps and coalesced batches
+    are served; what is refused stays refused: beam sizes outside the
+    buckets at boot, a v3-only language on a v2 model. The JAX engine's
+    TPU-tunnel probe ``steady_state_latency`` is not carried."""
+    from wis_tpu_torch.runtime.engine import (
+        ASRRequest,
+        UnsupportedLanguageError,
+        WhisperEngine,
+    )
     from wis_tpu_torch.runtime.residency import ModelRegistry
     from wis_tpu_torch.settings import APISettings
 
     _, port = engines
     with pytest.raises(ValueError, match="beam"):  # validated at boot
         WhisperEngine(ModelRegistry(APISettings(long_beam_size=9), "cpu"))
-    with pytest.raises(NotImplementedError):
-        port.transcribe(np.zeros(16000 * 31, np.float32))  # chunked long-form
-    with pytest.raises(NotImplementedError):
-        port.transcribe(np.zeros(16000, np.float32), timestamps=True)
-    with pytest.raises(NotImplementedError):
-        port.transcribe_coalesced([])
-
-
-def _wav_bytes(seconds=1.0, seed=0) -> bytes:
-    pcm = audio_i16(int(seconds * 16000), seed)[0]
-    buf = io.BytesIO()
-    with wave.open(buf, "wb") as w:
-        w.setnchannels(1)
-        w.setsampwidth(2)
-        w.setframerate(16000)
-        w.writeframes(pcm.astype("<i2").tobytes())
-    return buf.getvalue()
+    with pytest.raises(UnsupportedLanguageError):
+        port.transcribe(np.zeros(16000, np.float32), force_language="yue")
+    assert not hasattr(port, "steady_state_latency")
+    long = port.transcribe(audio_i16(31 * 16000, seed=31)[0], max_tokens=4)
+    assert long.audio_duration_ms == 31_000 and isinstance(long.text, str)
+    res = port.transcribe(audio_i16(16000, seed=1)[0], timestamps=True, word_timestamps=True,
+                          max_tokens=4)
+    assert res.segments is not None and res.words is not None
+    out = port.transcribe_coalesced([
+        ASRRequest(audio=audio_i16(16000, seed=i)[0], model="tiny", beam_size=1)
+        for i in range(2)])
+    assert len(out) == 2 and all(r.audio_duration_ms == 1000 for r in out)
 
 
 def test_api_asr_served_by_port_engine(engines):
@@ -428,7 +443,7 @@ def test_api_asr_served_by_port_engine(engines):
     from wis_tpu.server.app import create_app
 
     _, port = engines
-    body = _wav_bytes()
+    body = wav_bytes(1.0, 0)
 
     async def go():
         client = TestClient(TestServer(create_app(settings=_jax_settings(), engine=port)))

@@ -29,6 +29,10 @@ SMALL = dict(
 )
 JAX_CFG = JaxConfig(**SMALL)
 PORT_CFG = PortConfig(**SMALL)
+#: a v3-layout micro whisper (128 mel bins, 51866 tokens), tests/test_v3_family.py's
+V3_MICRO = dict(name="micro-v3", n_mels=128, n_vocab=51866, n_audio_state=64,
+                n_audio_head=2, n_audio_layer=2, n_text_state=64, n_text_head=2,
+                n_text_layer=1)
 
 
 def np_tree(tree):
@@ -77,6 +81,20 @@ def audio_i16(n_samples: int, seed: int, batch: int = 1) -> np.ndarray:
     return np.clip(pcm * 32768.0, -32768, 32767).astype(np.int16)
 
 
+def wav_bytes(seconds: float, seed: int) -> bytes:
+    """A 16 kHz mono 16-bit WAV of audio_i16's samples."""
+    import io
+    import wave
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(audio_i16(int(seconds * 16000), seed)[0].astype("<i2").tobytes())
+    return buf.getvalue()
+
+
 def jax_gumbel_rows(key, chunk, v, batch=1):
     """The gumbel rows run_decode_chunk's key chain draws, in step order:
     per step ``key, sub = split(key)``, then ``categorical(sub, ·)`` adds
@@ -86,3 +104,32 @@ def jax_gumbel_rows(key, chunk, v, batch=1):
         key, sub = jax.random.split(key)
         rows.append(np.asarray(jax.random.gumbel(sub, (batch, v), jnp.float32)))
     return np.stack(rows)
+
+
+def engine_pair(fused: bool = False, model: str = "tiny", **settings):
+    """(JAX engine, port engine) on ``model``, the port serving the
+    weights the JAX registry loaded (f32, or bf16 with ``fused`` — then both
+    run ``fused_decode="on"``: the JAX kernels in interpret mode, the port's
+    plain versions). The JAX registry seeds random weights with
+    ``hash(size)``, which Python salts per process; pinning it keeps the
+    weights fixed."""
+    import pytest
+
+    from wis_tpu.runtime import residency as jax_residency
+    from wis_tpu.runtime.engine import WhisperEngine as JaxEngine
+    from wis_tpu.settings import APISettings as JaxSettings
+    from wis_tpu_torch.runtime.engine import WhisperEngine
+    from wis_tpu_torch.runtime.residency import ModelRegistry
+    from wis_tpu_torch.settings import APISettings
+
+    kw = dict(whisper_model_default=model, dtype="bfloat16" if fused else "float32",
+              max_decode_tokens=8, beam_size=1, long_beam_size=5,
+              fused_decode="on" if fused else "auto")
+    kw.update(settings)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_residency, "hash", lambda s: 7, raising=False)
+        js = JaxSettings(batch_window_s=0.01, **kw)
+        jax_engine = JaxEngine(jax_residency.ModelRegistry(js), js)
+        tree = np_tree(jax_engine.registry.get(model).params)
+    port = WhisperEngine(ModelRegistry(APISettings(**kw), "cpu", jax_trees={model: tree}))
+    return jax_engine, port

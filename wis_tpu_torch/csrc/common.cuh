@@ -89,6 +89,36 @@ __device__ __forceinline__ void int8x4_to_float(uint32_t w, float* f) {
     f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) - 8388736.f;
 }
 
+// 16 int8 in 16 bytes → 16 exact floats.
+__device__ __forceinline__ void int8x16_to_float(uint4 v, float* f) {
+  int8x4_to_float(v.x, f);
+  int8x4_to_float(v.y, f + 4);
+  int8x4_to_float(v.z, f + 8);
+  int8x4_to_float(v.w, f + 12);
+}
+
+// D += A·B for one 16×8 tile: bf16 operands, f32 accumulators (the
+// m16n8k16 fragment layout: lane = 4·g + t4 holds rows g and g + 8,
+// columns 2·t4 and 2·t4 + 1).
+__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// two adjacent bf16 (4-byte aligned) as one fragment register
+__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
 // LayerNorm of one f32 row by one warp: mean, mean squared deviation,
 // eps 1e-5, affine; rounded once to bf16 and stored with stride `step`.
 __device__ __forceinline__ void ln_row_bf16(const float* __restrict__ xr, const float* __restrict__ g,

@@ -30,31 +30,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using wis::load_pair;
+using wis::mma_bf16_16816;
+using wis::pack_bf16;
 
 constexpr int kBlockQ = 64;   // query rows per block (16 per warp)
 constexpr int kBlockK = 64;   // keys per shared-memory tile
 constexpr int kWarps = 4;
 constexpr int kPad = 8;       // bf16 elements of row padding (bank spread)
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 template <int DH>
 __global__ void __launch_bounds__(kWarps * 32)

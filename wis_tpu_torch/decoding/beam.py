@@ -17,7 +17,15 @@ head (``ops/fused_decode``, ``ops/fused_logits``) on the kernels' layouts,
 as the JAX package's fused branch does.
 ``jax.lax.top_k`` breaks ties toward the lower index and ``torch.topk``
 promises no order, so every top-k here is a stable descending sort.
-The timestamp grammar is not ported yet: ``with_timestamps=True`` raises.
+
+``with_timestamps=True`` applies whisper's timestamp grammar as the JAX
+package does: the first token must be a timestamp of at most
+``MAX_INITIAL_TS_INDEX`` steps (1 s), timestamps come in non-decreasing
+begin/end pairs, text cannot follow an unpaired timestamp, and a row whose
+timestamp mass beats its best text token must emit a timestamp. Each
+running beam carries (prev_ts, prevprev_ts, max_ts); the eager branch masks
+the logits (``ops.fused_logits.apply_grammar``), the fused branch hands the
+same rules to the head as ``ts_state`` rows.
 """
 
 from __future__ import annotations
@@ -30,13 +38,16 @@ import torch.nn.functional as F
 
 from wis_tpu_torch.models.whisper.config import WhisperConfig
 from wis_tpu_torch.models.whisper.model import DecoderCache, decode_step, prefill
-from wis_tpu_torch.models.whisper.tokenizer import EOT
+from wis_tpu_torch.models.whisper.tokenizer import EOT, layout_for_vocab
 from wis_tpu_torch.ops.attention import NEG_INF
 from wis_tpu_torch.ops.fused_decode import build_fused_decode_step, quantize_xa_columns
-from wis_tpu_torch.ops.fused_logits import build_fused_logits_topk
+from wis_tpu_torch.ops.fused_logits import apply_grammar, build_fused_logits_topk
 
 #: HF beam search's "effectively -inf" gating constant
 GATE = -1.0e9
+#: the latest timestamp the first token may take: 50 steps of 20 ms
+#: (openai's max_initial_timestamp of 1 s, the JAX package's default)
+MAX_INITIAL_TS_INDEX = 50
 
 
 class GenerateResult(NamedTuple):
@@ -81,7 +92,8 @@ def build_generate_xa(
     prompt: (prompt_len,) shared or (batch, prompt_len) per sequence;
     token_cap: runtime cap ≤ max_new_tokens (int or 0-d tensor).
     renorm_suppressed=False normalizes over the full distribution before
-    masking (HF order); eot_id overrides the EOT id.
+    masking (HF order); eot_id overrides the EOT id. with_timestamps
+    applies the timestamp grammar (module docstring).
 
     fused=True: generate(params, packed, xa_kv, prompt, token_cap), with
     ``packed = ops.fused_decode.pack_decoder(params, cfg)``. Each token runs
@@ -92,10 +104,7 @@ def build_generate_xa(
     head, int8 when the tree carries ``tok_emb_q``. xa_int8 (fused only)
     quantizes the flattened cross-KV per column once before the loop
     (``quantize_xa_columns``)."""
-    if with_timestamps:
-        raise NotImplementedError(
-            "the timestamp grammar is not ported to wis_tpu_torch yet"
-        )
+    ts_base = layout_for_vocab(cfg.n_vocab).timestamp_base
     eot = EOT if eot_id is None else int(eot_id)
     K, B = beam_size, batch
     BK = B * K
@@ -109,16 +118,23 @@ def build_generate_xa(
             cfg, bk=BK, t_cache=cache_len, s_audio=cfg.n_audio_ctx,
             n_seq=B, xa_int8=xa_int8,
         )
-        head_kw = dict(bk=BK, k=KC, full_lse=not renorm_suppressed)
+        head_kw = dict(bk=BK, k=KC, grammar=with_timestamps, ts_base=ts_base, eot=eot,
+                       full_lse=not renorm_suppressed)
         head_fn = build_fused_logits_topk(cfg, **head_kw)
         head_fn_q = build_fused_logits_topk(cfg, emb_int8=True, **head_kw)
         H, L = cfg.n_text_head, cfg.n_text_layer
         Dh = cfg.n_text_state // H
         s_pad = ((cfg.n_audio_ctx + 127) // 128) * 128
-    sup_np = _suppress_mask(cfg.n_vocab, tuple(suppress_tokens))
-    begin_np = _suppress_mask(
-        cfg.n_vocab, tuple(begin_suppress_tokens) + tuple(suppress_tokens)
-    )
+    base_suppress = tuple(suppress_tokens)
+    if with_timestamps:
+        base_suppress += (layout_for_vocab(cfg.n_vocab).no_timestamps,)
+    begin_extra = tuple(begin_suppress_tokens) + base_suppress
+    if with_timestamps:
+        # the first token is a timestamp, at most MAX_INITIAL_TS_INDEX in
+        begin_extra += tuple(range(0, ts_base))
+        begin_extra += tuple(range(ts_base + MAX_INITIAL_TS_INDEX + 1, cfg.n_vocab))
+    sup_np = _suppress_mask(cfg.n_vocab, base_suppress)
+    begin_np = _suppress_mask(cfg.n_vocab, begin_extra)
 
     def _norm_len(n):
         """Length-penalty denominator: generated length incl. EOT."""
@@ -179,7 +195,21 @@ def build_generate_xa(
         )
         beam_rows = torch.arange(K, device=device)
 
-        def run_fused_step(tokens, cache, anc):
+        def ts_rows(ts):
+            """(prev_ts, prevprev_ts, max_ts) (B, K) → the head's ts_state
+            (BK, 4) int32: need_ts (an open pair), need_text (a closed
+            pair), the least legal timestamp id (equality with the last
+            timestamp only while its pair is open), pad."""
+            prev, prevprev, max_ts = ts
+            open_pair = prev & ~prevprev
+            min_ts = torch.where(open_pair, max_ts, max_ts + 1)
+            return torch.stack(
+                [open_pair.reshape(BK), (prev & prevprev).reshape(BK),
+                 min_ts.reshape(BK), torch.zeros_like(min_ts.reshape(BK))],
+                dim=1,
+            ).to(torch.int32)
+
+        def run_fused_step(tokens, cache, anc, ts):
             # sel from the PRE-update ancestry: the current position is
             # still -1 and selects nothing; the step's own K/V join through
             # the kernel's self column. Offsetting by b·K keeps each beam
@@ -199,21 +229,27 @@ def build_generate_xa(
                 head, emb = head_fn_q, dec["tok_emb_q"]
             else:
                 head, emb = head_fn, dec["tok_emb"]
-            cand_val, cand_tok, lse = head(x_out, dec["ln"]["g"], dec["ln"]["b"], emb, sup)
+            cand_val, cand_tok, lse = head(
+                x_out, dec["ln"]["g"], dec["ln"]["b"], emb, sup,
+                *(() if ts is None else (ts_rows(ts),)),
+            )
             return cand_val, cand_tok, lse, DecoderCache(kc, vc, cache.pos + 1), anc
 
-        def run_step(tokens, cache, anc):
-            """Decoder step for the running beams' last tokens →
-            (cand_val (BK, KC), cand_tok (BK, KC), lse (BK, 1), cache,
-            anc with the current position marked as each beam's own row)."""
+        def run_step(tokens, cache, anc, ts):
+            """Decoder step for the running beams' last tokens and, with
+            timestamps, their grammar state → (cand_val (BK, KC), cand_tok
+            (BK, KC), lse (BK, 1), cache, anc with the current position
+            marked as each beam's own row)."""
             if fused:
-                return run_fused_step(tokens, cache, anc)
+                return run_fused_step(tokens, cache, anc, ts)
             anc = anc.clone()
             anc[:, :, cache.pos] = beam_rows
             logits, cache = decode_step(
                 params, tokens.reshape(BK), cache, xa_kv, cfg, anc=anc
             )  # (BK, V) f32
             masked = logits + sup
+            if ts is not None:
+                masked = apply_grammar(masked, ts_rows(ts), ts_base, eot)
             cand_val, cand_tok = top_k(masked, KC)
             lse = torch.logsumexp(
                 masked if renorm_suppressed else logits, dim=-1, keepdim=True
@@ -234,20 +270,35 @@ def build_generate_xa(
     # ------------------------------------------------------------------
     # Greedy (K == 1): argmax each step, stop at the first EOT
     # ------------------------------------------------------------------
+    def _ts_init(tokens):
+        """Grammar state after the first token: a lone leading timestamp
+        counts as a closed pair (text must follow it)."""
+        if not with_timestamps:
+            return None
+        return (tokens >= ts_base, torch.ones_like(tokens, dtype=torch.bool),
+                torch.clamp_min(tokens, ts_base))
+
     def _greedy(first_lp, cache, anc, run_step, cap_eff, device):
         sum_lp, tokens = top_k(first_lp, 1)  # (B, 1)
         out = torch.full((B, 1, max_new_tokens), eot, dtype=torch.long, device=device)
         out[:, :, 0] = tokens
         finished = tokens == eot
         out_len = torch.ones((B, 1), dtype=torch.long, device=device)
+        ts = _ts_init(tokens)
         t = 1
         while t < cap_eff and not bool(finished.all()):
-            cand_val, cand_tok, lse, cache, anc = run_step(tokens, cache, anc)
+            cand_val, cand_tok, lse, cache, anc = run_step(tokens, cache, anc, ts)
             lp = (cand_val - lse).reshape(B, 1)
             tok = torch.where(finished, eot, cand_tok.reshape(B, 1))
             out[:, :, t] = tok
             sum_lp = sum_lp + torch.where(finished, 0.0, lp)
             out_len = torch.where(finished, out_len, out_len + 1)
+            if ts is not None:  # finished rows keep their state
+                prev, prevprev, max_ts = ts
+                tok_ts = tok >= ts_base
+                ts = (torch.where(finished, prev, tok_ts),
+                      torch.where(finished, prevprev, prev),
+                      torch.where(tok_ts & ~finished, torch.maximum(max_ts, tok), max_ts))
             finished = finished | (tok == eot)
             tokens = tok
             t += 1
@@ -324,9 +375,10 @@ def build_generate_xa(
             fin,
             torch.ones((B,), dtype=torch.bool, device=device),
         )
+        ts = _ts_init(tokens)
         t = 1
         while t < cap_eff and bool(unsat.any()):
-            cand_val, cand_tok, lse, cache, anc = run_step(tokens, cache, anc)
+            cand_val, cand_tok, lse, cache, anc = run_step(tokens, cache, anc, ts)
             cand_lp = (cand_val - lse).reshape(B, K, KC)
             total = sum_lp[..., None] + cand_lp  # (B, K, KC)
             vals, idx = top_k(total.reshape(B, K * KC), POOL)
@@ -341,6 +393,10 @@ def build_generate_xa(
             )
             # re-parent: the ancestry map absorbs the permutation
             anc = torch.gather(anc, 1, new_parent[..., None].expand(-1, -1, cache_len))
+            if ts is not None:
+                prev, prevprev, max_ts = (torch.gather(a, 1, new_parent) for a in ts)
+                tok_ts = tokens >= ts_base
+                ts = (tok_ts, prev, torch.where(tok_ts, torch.maximum(max_ts, tokens), max_ts))
             t += 1
 
         # the store is top_k-sorted best-first; argmax kept for the

@@ -14,8 +14,11 @@ copies of the JAX package's host-side helpers.
 The program runs eagerly on the device of its inputs. ``fused_step=True``
 decodes through the fused step and head (``decoding/beam.py``'s fused
 branch); the program then takes the packed decoder right after ``params``.
-Not ported yet: on-device long-form windows (``chunked=True``) and the
-timestamp grammar — each raises.
+``with_timestamps`` decodes with the timestamp grammar. ``chunked=True`` is
+the long-form variant: the audio is ONE (n_samples,) segment and the
+program cuts the 22 s windows at multiples of the 14 s step on the device,
+each zero-padded to the 30 s window — bit-identical to the host's
+``chunk_iter`` followed by ``pad_or_trim``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from wis_tpu_torch.audio.chunking import CHUNK_LEN, STRIDE_LEFT, STRIDE_RIGHT
 from wis_tpu_torch.audio.mel import N_SAMPLES, log_mel
 from wis_tpu_torch.decoding.beam import build_generate_xa
 from wis_tpu_torch.decoding.detect import _detect_from_kv
@@ -54,9 +58,8 @@ def build_asr_program(
     """Return asr(params, audio_i16 (B, n_samples), ctl (B, P+2)) → packed
     int32 (B, W) on the inputs' device; with fused_step,
     asr(params, packed_dec, audio_i16, ctl). xa_int8 streams the cross-KV
-    as per-column int8 inside the fused step."""
-    if chunked:
-        raise NotImplementedError("on-device long-form windows are not ported yet")
+    as per-column int8 inside the fused step. chunked: audio_i16 is one
+    (n_samples,) segment with n_samples ≥ (batch − 1)·step + CHUNK_LEN."""
     translate_tok = layout_for_vocab(cfg.n_vocab).translate
     K = beam_size
     gen = build_generate_xa(
@@ -78,9 +81,17 @@ def build_asr_program(
         prompt = ctl[:, :prompt_len].long()
         detect_mask = ctl[:, prompt_len]
         token_cap = int(ctl[0, prompt_len + 1])
-        audio = audio_i16.float() / 32768.0
-        if n_samples < N_SAMPLES:
-            audio = F.pad(audio, (0, N_SAMPLES - n_samples))
+        if chunked:
+            step = CHUNK_LEN - STRIDE_LEFT - STRIDE_RIGHT
+            long_audio = audio_i16.float() / 32768.0
+            audio = torch.stack(
+                [long_audio[w * step: w * step + CHUNK_LEN] for w in range(batch)]
+            )
+            audio = F.pad(audio, (0, N_SAMPLES - CHUNK_LEN))
+        else:
+            audio = audio_i16.float() / 32768.0
+            if n_samples < N_SAMPLES:
+                audio = F.pad(audio, (0, N_SAMPLES - n_samples))
         mel = log_mel(audio, n_mels=cfg.n_mels)  # (B, n_mels, 3000)
         xa = encode(params, mel, cfg)
         xa_kv = cross_kv(params, xa, cfg)

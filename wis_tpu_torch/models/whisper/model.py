@@ -19,7 +19,9 @@ the JAX package's shape gates: every LayerNorm with D % 128 == 0 goes to
 ``ops/layernorm.layer_norm_cuda``, and self-attention over T ≥ 512 with
 head_dim 64 or 128 goes to ``ops/flash.flash_attention_packed``, which
 takes bf16 only. On the CPU both take the plain formulas, as the JAX
-package does off TPU.
+package does off TPU. The eager decoder's beam self-attention runs the
+``ops/decode_attn.ancestry_attention`` kernel on a CUDA device, and every
+int8 product the ``ops/quant.int8_matmul`` kernel (through ``qmatmul``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 from wis_tpu_torch.models.whisper.config import WhisperConfig
 from wis_tpu_torch.models.whisper.stem import conv_stem
 from wis_tpu_torch.ops.attention import NEG_INF, merge_heads, qkv_heads
+from wis_tpu_torch.ops.decode_attn import ancestry_attention, global_rows
 from wis_tpu_torch.ops.flash import (
     flash_attention_packed,
     flash_attention_packed_plain,
@@ -208,12 +211,19 @@ def _decoder_pass(
     if anc is not None:
         k_beams = anc.shape[1]
         bq = anc.shape[0]
-        rows = torch.arange(k_beams, device=device)
-        # sel[b, k, p, s] = physical row p holds (b, k)'s history at s
-        sel = (anc[..., None] == rows).transpose(-1, -2)  # (Bq, K, K, T)
+        if device.type == "cuda":
+            # the kernel reads the flat cache's physical rows directly
+            ganc = global_rows(anc)
+        else:
+            rows = torch.arange(k_beams, device=device)
+            # sel[b, k, p, s] = physical row p holds (b, k)'s history at s
+            sel = (anc[..., None] == rows).transpose(-1, -2)  # (Bq, K, K, T)
 
     def _self_attn_anc(q, ck, cv):
         # q (BK, H, 1, Dh); ck/cv (BK, H, Dh, T_max), rows grouped (Bq, K)
+        if device.type == "cuda":
+            out = ancestry_attention(q[:, :, 0].contiguous(), ck, cv, ganc, pos_offset)
+            return out[:, :, None]
         qk = q.reshape(bq, k_beams, n_head, dh)
         ckk = ck.reshape(bq, k_beams, *ck.shape[1:])
         cvv = cv.reshape(bq, k_beams, *cv.shape[1:])

@@ -1,5 +1,5 @@
-"""Whisper tokenizer layout, prompts and text decode — the ASR half of
-``wis_tpu/models/whisper/tokenizer.py``, carried as a copy. Loading that
+"""Whisper tokenizer layout, prompts, text decode and timestamp segments —
+the ASR half of ``wis_tpu/models/whisper/tokenizer.py``, carried as a copy. Loading that
 file by path would still import ``wis_tpu.languages`` and so the
 ``wis_tpu`` package, which the port never loads.
 
@@ -9,7 +9,8 @@ GPT-2 byte-level, from HF ``vocab.json`` / ``tokenizer.json`` when a model
 directory provides one, else the same deterministic placeholder vocabulary
 the JAX package uses. BPE *encode* (XTTS text conditioning) is not part of
 the ASR path and is not carried. A CPU test holds the layout, prompts,
-suppress lists and placeholder decode equal to ``wis_tpu``'s.
+suppress lists, placeholder decode, special ids and segment parsing equal
+to ``wis_tpu``'s.
 """
 
 from __future__ import annotations
@@ -158,6 +159,44 @@ def _bytes_to_unicode() -> Dict[int, str]:
     return dict(zip(bs, [chr(c) for c in cs]))
 
 
+def parse_segments(tokenizer: "WhisperTokenizer", ids: Sequence[int]) -> List[dict]:
+    """Split a timestamped token stream into segments:
+    <|t0|> text <|t1|> [<|t2|> text <|t3|> ...] →
+    [{"start": s, "end": e, "text": ...}, ...]."""
+    lay = tokenizer.layout
+    TIMESTAMP_BASE, N_VOCAB = lay.timestamp_base, lay.n_vocab
+    segments: List[dict] = []
+    start: float = 0.0
+    current: List[int] = []
+    for i in ids:
+        i = int(i)
+        if TIMESTAMP_BASE <= i < N_VOCAB:
+            t = (i - TIMESTAMP_BASE) * 0.02
+            if current:
+                segments.append(
+                    {
+                        "start": round(start, 2),
+                        "end": round(t, 2),
+                        "text": tokenizer.decode(current).strip(),
+                    }
+                )
+                current = []
+            start = t
+        elif i == EOT:
+            break
+        elif i < EOT:
+            current.append(i)
+    if current:
+        segments.append(
+            {
+                "start": round(start, 2),
+                "end": round(start, 2),
+                "text": tokenizer.decode(current).strip(),
+            }
+        )
+    return segments
+
+
 def build_prompt(
     language: str = "en",
     task: str = "transcribe",
@@ -224,6 +263,12 @@ class WhisperTokenizer:
             begin_suppress_tokens=begin_suppress,
             layout=layout,
         )
+
+    @property
+    def all_special_ids(self) -> frozenset:
+        """Every id >= EOT (specials + timestamps) — the set the long-form
+        LCS merge filters out."""
+        return frozenset(range(EOT, self.layout.n_vocab))
 
     def decode(self, ids: Sequence[int], skip_special: bool = True) -> str:
         toks: List[str] = []

@@ -98,9 +98,9 @@ def kernels() -> ctypes.CDLL:
             lib.wis_fused_decode_workspace_bytes.restype = ll
             lib.wis_fused_decode_step.argtypes = [p] * 11 + [i, p] + [i] * 8 + [p]
             lib.wis_fused_decode_step.restype = i
-            lib.wis_fused_logits_workspace_bytes.argtypes = [i, i, i]
+            lib.wis_fused_logits_workspace_bytes.argtypes = [i, i, i, i]
             lib.wis_fused_logits_workspace_bytes.restype = ll
-            lib.wis_fused_logits_topk.argtypes = [p] * 5 + [i] * 6 + [p] * 5
+            lib.wis_fused_logits_topk.argtypes = [p] * 6 + [i] * 8 + [p] * 5
             lib.wis_fused_logits_topk.restype = i
             lib.wis_fused_gpt_workspace_bytes.argtypes = [i, i]
             lib.wis_fused_gpt_workspace_bytes.restype = ll
@@ -108,6 +108,12 @@ def kernels() -> ctypes.CDLL:
             lib.wis_fused_gpt_step.restype = i
             lib.wis_fused_gpt_head.argtypes = [p] * 11 + [i] * 4 + [p]
             lib.wis_fused_gpt_head.restype = i
+            lib.wis_int8_matmul_splits.argtypes = [i] * 4
+            lib.wis_int8_matmul_splits.restype = i
+            lib.wis_int8_matmul.argtypes = [p] * 5 + [i] * 5 + [p]
+            lib.wis_int8_matmul.restype = i
+            lib.wis_ancestry_attention.argtypes = [p] * 4 + [i] * 5 + [f, p, p]
+            lib.wis_ancestry_attention.restype = i
             _lib = lib
         return _lib
 

@@ -8,14 +8,18 @@ out of device memory and leaves only each vocabulary chunk's top-k and
 logsumexp partials, then a small kernel that folds them into the final
 top-k and ``lse``. It is bound by the embedding's bytes.
 
-``fused_logits_topk`` launches the kernels for CUDA tensors and counts one
-launch per head call in ``fused_logits_topk.launches``; it takes the plain
-version, ``fused_logits_topk_plain``, only for tensors on the CPU.
+Grammar mode (``grammar=True``) folds whisper's timestamp grammar in:
+per-beam ``ts_state (BK, 4)`` int32 rows (need_ts, need_text, min_ts, pad)
+mask the logits against global token ids, and the kernel also keeps the
+timestamp region's logsumexp, the best text logit and a second top-k
+restricted to timestamps; a row whose timestamp mass beats its best text
+token takes the timestamp candidates (and, unless full_lse, the region's
+logsumexp) — the TPU kernel's force rule.
 
-Not ported yet: the timestamp grammar (``grammar=True``: the per-beam
-``ts_state`` masks, the timestamp-region logsumexp and the second
-candidate set), which waits for the port's timestamp decoding;
-``build_fused_logits_topk(grammar=True)`` raises.
+``fused_logits_topk`` launches the kernels for CUDA tensors and counts one
+launch per head call in ``fused_logits_topk.launches`` (and the grammar
+mode's again in ``fused_logits_topk.grammar_launches``); it takes the plain
+version, ``fused_logits_topk_plain``, only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -44,24 +48,51 @@ def _stable_top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _lse(src: torch.Tensor) -> torch.Tensor:
+    """m + log(max(Σ exp(src − m), 1e-30)) over the last axis; columns at
+    NEG add exactly zero."""
+    m = src.amax(dim=-1, keepdim=True)
+    s = torch.where(src > NEG * 0.5, torch.exp(src - m), 0.0).sum(dim=-1, keepdim=True)
+    return m + torch.log(torch.clamp_min(s, 1e-30))
+
+
+def apply_grammar(logits, ts_state, ts_base: int, eot: int):
+    """The timestamp grammar on (BK, V) logits, the JAX package's eager
+    masks: need_ts bans ids below eot, need_text bans timestamps, ids in
+    [ts_base, min_ts) are banned, and a row whose timestamp logsumexp beats
+    its best text logit bans every non-timestamp id."""
+    ids = torch.arange(logits.shape[-1], device=logits.device)
+    is_ts = ids >= ts_base
+    ts = ts_state.long()
+    bad = (
+        ((ts[:, 0:1] > 0) & (ids < eot))
+        | ((ts[:, 1:2] > 0) & is_ts)
+        | (is_ts & (ids < ts[:, 2:3]))
+    )
+    logits = torch.where(bad, NEG, logits)
+    force = _lse(logits[:, ts_base:]) > logits[:, :ts_base].amax(dim=-1, keepdim=True)
+    return torch.where(force & ~is_ts, NEG, logits)
+
+
 def fused_logits_topk_plain(x, ln_g, ln_b, emb: Emb, sup, *, k: int,
-                            full_lse: bool = False):
+                            full_lse: bool = False, ts_state=None, ts_base: int = 0,
+                            eot: int = 0):
     """The head in plain PyTorch: x (BK, D) f32; emb (V, D) bf16 or the
     per-row int8 leaf {"q": (V, D) int8, "s": (V, 1) f32}; sup (V,) f32.
     → (cand_val (BK, k) f32 suppressed logits, cand_tok (BK, k) int64,
     lse (BK, 1) f32), lse over the suppressed logits, or over the raw ones
-    with full_lse."""
+    with full_lse. With ``ts_state`` (BK, 4) the timestamp grammar
+    (``apply_grammar``) masks the suppressed logits first."""
     xn = layer_norm_plain(x.float(), ln_g, ln_b).to(torch.bfloat16).float()
     if isinstance(emb, dict):
         dot = (xn @ emb["q"].float().T) * emb["s"].float().reshape(1, -1)
     else:
         dot = xn @ emb.float().T
     logits = dot + sup.float()
-    src = dot if full_lse else logits
-    m = src.amax(dim=-1, keepdim=True)
-    lse = m + torch.log(torch.clamp_min(torch.exp(src - m).sum(dim=-1, keepdim=True), 1e-30))
+    if ts_state is not None:
+        logits = apply_grammar(logits, ts_state, ts_base, eot)
     vals, tok = _stable_top_k(logits, k)
-    return vals, tok, lse
+    return vals, tok, _lse(dot if full_lse else logits)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -69,12 +100,14 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"fused_logits_topk: {msg}")
 
 
-def fused_logits_topk(x, ln_g, ln_b, emb: Emb, sup, *, k: int, full_lse: bool = False):
+def fused_logits_topk(x, ln_g, ln_b, emb: Emb, sup, *, k: int, full_lse: bool = False,
+                      ts_state=None, ts_base: int = 0, eot: int = 0):
     """The head; arguments and result as ``fused_logits_topk_plain``. CUDA
     tensors run ``csrc/fused_logits.cu`` (BK ≤ 32, k ≤ 8, D a multiple of
     16); CPU tensors run the plain version."""
     if x.device.type == "cpu":
-        return fused_logits_topk_plain(x, ln_g, ln_b, emb, sup, k=k, full_lse=full_lse)
+        return fused_logits_topk_plain(x, ln_g, ln_b, emb, sup, k=k, full_lse=full_lse,
+                                       ts_state=ts_state, ts_base=ts_base, eot=eot)
     _check(x.device.type == "cuda", f"unsupported device {x.device}")
     dev = x.device
     bk, d = x.shape
@@ -98,13 +131,19 @@ def fused_logits_topk(x, ln_g, ln_b, emb: Emb, sup, *, k: int, full_lse: bool = 
            f"sup must be f32 ({v},), got {sup.dtype} {tuple(sup.shape)}")
     ln = torch.stack([ln_g, ln_b]).float()
     tensors = [x, table, sup, ln] + ([scales] if emb_int8 else [])
+    grammar = ts_state is not None
+    if grammar:
+        _check(ts_state.dtype == torch.int32 and ts_state.shape == (bk, 4),
+               f"ts_state must be int32 ({bk}, 4), got {ts_state.dtype} {tuple(ts_state.shape)}")
+        tensors.append(ts_state)
     for t in tensors:
         _check(t.device == dev, f"every tensor must be on {dev}")
         _check(t.is_contiguous(), "every tensor must be contiguous")
         _check(t.data_ptr() % 16 == 0, "pointers must be 16-byte aligned")
 
     lib = _build.kernels()
-    ws = torch.empty(lib.wis_fused_logits_workspace_bytes(bk, v, k), dtype=torch.uint8, device=dev)
+    ws = torch.empty(lib.wis_fused_logits_workspace_bytes(bk, v, k, int(grammar)),
+                     dtype=torch.uint8, device=dev)
     vals = torch.empty((bk, k), dtype=torch.float32, device=dev)
     tok = torch.empty((bk, k), dtype=torch.int64, device=dev)
     lse = torch.empty((bk, 1), dtype=torch.float32, device=dev)
@@ -112,16 +151,19 @@ def fused_logits_topk(x, ln_g, ln_b, emb: Emb, sup, *, k: int, full_lse: bool = 
         rc = lib.wis_fused_logits_topk(
             x.data_ptr(), ln.data_ptr(), table.data_ptr(),
             scales.data_ptr() if emb_int8 else None, sup.data_ptr(),
-            bk, d, v, k, int(full_lse), int(emb_int8),
+            ts_state.data_ptr() if grammar else None,
+            bk, d, v, k, int(full_lse), int(emb_int8), int(ts_base), int(eot),
             ws.data_ptr(), vals.data_ptr(), tok.data_ptr(), lse.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "fused_logits_topk")
     fused_logits_topk.launches += 1
+    fused_logits_topk.grammar_launches += grammar
     return vals, tok, lse
 
 
 fused_logits_topk.launches = 0
+fused_logits_topk.grammar_launches = 0
 
 
 def build_fused_logits_topk(
@@ -135,27 +177,27 @@ def build_fused_logits_topk(
     full_lse: bool = False,
     emb_int8: bool = False,
 ):
-    """Return head(x (bk, D) f32, ln_g, ln_b (D,), emb, sup (V,) f32) →
-    (cand_val (bk, k) f32, cand_tok (bk, k) int64, lse (bk, 1) f32), the JAX
-    package's signature. emb_int8: ``emb`` is the per-row int8 leaf
-    (``ops/quant.quantize_rows`` of tok_emb), each row's scale applied after
-    the dot; else the bf16 (V, D) table. full_lse: the logsumexp runs over
-    the logits before suppression; candidates always use the suppressed
-    values. ``ts_base`` and ``eot`` serve only the grammar mode, which is
-    not ported yet."""
-    del ts_base, eot
-    if grammar:
-        raise NotImplementedError(
-            "the fused head's timestamp-grammar mode is not ported to wis_tpu_torch yet"
-        )
+    """Return head(x (bk, D) f32, ln_g, ln_b (D,), emb, sup (V,) f32[,
+    ts_state (bk, 4) int32]) → (cand_val (bk, k) f32, cand_tok (bk, k)
+    int64, lse (bk, 1) f32), the JAX package's signature. emb_int8: ``emb``
+    is the per-row int8 leaf (``ops/quant.quantize_rows`` of tok_emb), each
+    row's scale applied after the dot; else the bf16 (V, D) table.
+    full_lse: the logsumexp runs over the logits before suppression;
+    candidates always use the suppressed values. grammar: the head takes
+    ``ts_state`` and applies the timestamp grammar with the token-id
+    constants ``ts_base`` and ``eot``."""
     if not 1 <= k <= KPAD:
         raise ValueError(f"k={k} outside 1..{KPAD}")
 
-    def head(x, ln_g, ln_b, emb, sup):
+    def head(x, ln_g, ln_b, emb, sup, ts_state=None):
         if isinstance(emb, dict) != emb_int8:
             raise ValueError(f"head built with emb_int8={emb_int8} got the other embedding")
         if x.shape != (bk, cfg.n_text_state):
             raise ValueError(f"x {tuple(x.shape)} is not ({bk}, {cfg.n_text_state})")
-        return fused_logits_topk(x, ln_g, ln_b, emb, sup, k=k, full_lse=full_lse)
+        if (ts_state is not None) != grammar:
+            raise ValueError(f"head built with grammar={grammar} takes ts_state "
+                             f"{'(bk, 4)' if grammar else 'None'}")
+        return fused_logits_topk(x, ln_g, ln_b, emb, sup, k=k, full_lse=full_lse,
+                                 ts_state=ts_state, ts_base=ts_base, eot=eot)
 
     return head

@@ -7,17 +7,29 @@ formulas: f32 absmax, ``max(absmax, 1e-8) / 127`` (as XLA computes it,
 a multiply by the f32 reciprocal), round-half-even,
 clip to ±127.
 
-``qmatmul`` keeps the JAX package's XLA-path numerics: the scale is cast
-to bf16 *before* the multiply (``q.bf16 * s.bf16``, one bf16 rounding of
-the effective weight in a bf16 matmul), then the matmul accumulates in f32
-and rounds to x's dtype.
+On the card, ``qmatmul`` sends an int8 leaf to ``int8_matmul``, the
+hand-written W8A16 kernel of ``csrc/int8_matmul.cu`` that replaces the TPU
+kernel ``wis_tpu/ops/quant_pallas.py`` ``int8_matmul``: x rounded to bf16
+against the int8 weight made bf16 in the kernel, f32 accumulation, the f32
+column scale applied once after the contraction, the output in x's dtype.
+The gate is the JAX package's ``_use_pallas`` shape gate (a 2-D int8
+weight, K and N multiples of 128) without its TPU opt-in; every Whisper
+and XTTS product meets it, whatever the activations' float dtype. That is
+the JAX package's ``WIS_PALLAS_QUANT`` numerics: the scale stays f32.
+Elsewhere — the CPU, or a shape the gate refuses — ``qmatmul`` keeps the
+JAX package's XLA-path numerics: the scale is cast to bf16 *before* the
+multiply (``q.bf16 * s.bf16``, one bf16 rounding of the effective
+weight), then the matmul accumulates in f32 and rounds to x's dtype.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Union
 
 import torch
+
+from wis_tpu_torch.ops import _build
 
 QuantLeaf = Dict[str, torch.Tensor]
 Weight = Union[torch.Tensor, QuantLeaf]
@@ -62,9 +74,77 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y.reshape(*lead, b.shape[-1])
 
 
+def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The W8A16 product in plain PyTorch: ``(x @ q) * s`` in f32 with x
+    rounded to bf16 first, the result in x's dtype. x (M, K), q (K, N)
+    int8, s (1, N) or (N,) f32."""
+    y = x.to(torch.bfloat16).float() @ q.float()
+    return (y * s.float().reshape(1, -1)).to(x.dtype)
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"int8_matmul: {msg}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """y (M, N) = ``int8_matmul_plain(x, q, s)``: CUDA tensors run
+    ``csrc/int8_matmul.cu`` (x of any float dtype, rounded to bf16 as the
+    plain version does; K a multiple of 128 and N of 64), one launch per
+    call; CPU tensors run the plain version."""
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, q, s)
+    _check(x.device.type == "cuda", f"unsupported device {x.device}")
+    m, k = x.shape
+    n = q.shape[-1]
+    _check(x.is_floating_point(), f"x must be a float tensor, got {x.dtype}")
+    _check(q.dtype == torch.int8 and q.shape == (k, n), f"q must be int8 ({k}, N), got "
+           f"{q.dtype} {tuple(q.shape)}")
+    _check(s.dtype == torch.float32 and s.numel() == n, f"s must be f32 with {n} scales")
+    _check(k % 128 == 0 and n % 64 == 0, f"K={k} must be a multiple of 128, N={n} of 64")
+    # the kernel stores bf16 for bf16 activations and f32 for any other
+    out_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return y.to(x.dtype)
+    xb = x.to(torch.bfloat16)
+    for t in (xb, q, s):
+        _check(t.device == x.device, f"every tensor must be on {x.device}")
+        _check(t.is_contiguous() and t.data_ptr() % 16 == 0, "tensors must be contiguous "
+               "and 16-byte aligned")
+    lib = _build.kernels()
+    splits = lib.wis_int8_matmul_splits(m, k, n, _sm_count(x.device.index))
+    part = torch.empty(splits * m * n if splits > 1 else 0, dtype=torch.float32,
+                       device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.wis_int8_matmul(xb.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
+                                 part.data_ptr(), m, k, n, splits, int(out_dtype == torch.float32),
+                                 torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "int8_matmul")
+    int8_matmul.launches += 1
+    return y.to(x.dtype)
+
+
+int8_matmul.launches = 0
+
+
+def _use_kernel(x: torch.Tensor, q: torch.Tensor) -> bool:
+    """The JAX package's ``_use_pallas`` shape gate, on a CUDA tensor."""
+    return x.is_cuda and q.dim() == 2 and q.shape[0] % 128 == 0 and q.shape[1] % 128 == 0
+
+
 def qmatmul(x: torch.Tensor, w: Weight) -> torch.Tensor:
     """x (..., K) @ w (K, N) with transparent int8 dequant; output dtype
-    follows x."""
+    follows x. On the card an int8 leaf that meets the gate runs the
+    ``int8_matmul`` kernel."""
+    if is_quantized(w) and _use_kernel(x, w["q"]):
+        y = int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w["q"], w["s"])
+        return y.reshape(*x.shape[:-1], y.shape[-1])
     if is_quantized(w):
         # the scale rounds to bf16 before the multiply; the product (exact
         # in f32: 7 × 8 significant bits) rounds to bf16 only for a bf16

@@ -62,6 +62,8 @@ class LoadedModel:
     #: the fused step's repacked decoder weights, filled on first use by
     #: the engine (``WhisperEngine._packed_decoder``)
     packed: Optional[PackedDecoder] = None
+    #: the size's asset directory (tokenizer, alignment heads), if any
+    model_dir: Optional[str] = None
 
 
 class ModelRegistry:
@@ -141,7 +143,8 @@ class ModelRegistry:
                     if d
                     else WhisperTokenizer(layout=lay)
                 )
-            model = LoadedModel(size, cfg, params, tok, tree_bytes(params))
+            model = LoadedModel(size, cfg, params, tok, tree_bytes(params),
+                                model_dir=self._model_dir(size))
             self._models[size] = model
             return model
 

@@ -32,8 +32,12 @@ class APISettings:
     #: default whisper model: tiny | base | small | medium | large
     whisper_model_default: str = "medium"
 
-    #: long-form chunking (not served by the port yet: > 30 s raises)
+    #: long-form chunking: audio over 30 s is cut into 22 s windows at a
+    #: 14 s step and the window texts are LCS-merged (else it is truncated)
     support_chunking: bool = True
+    #: most long-form windows decoded in one ASR program call (the batch
+    #: bucket of the chunked path)
+    concurrent_gpu_chunks: int = 4
 
     #: computation dtype for model weights/activations
     dtype: str = "bfloat16"
