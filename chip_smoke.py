@@ -15,8 +15,10 @@ exits non-zero without printing a result:
    seconds;
 3. hold each encoder kernel against its plain PyTorch version on the card,
    in bf16, at the encoder's shapes (flash also on inputs that expose an
-   unmasked ragged key tile), and time kernel, plain version and the
-   PyTorch library call that computes the same function; the same for
+   unmasked ragged key tile; the head-major flash kernel also at head
+   widths 32, 80 and 72, and bit-identical to the packed one at 64 and
+   128), and time kernel, plain version and the PyTorch library call that
+   computes the same function; the same for
    ``int8_matmul`` (the cross-KV products of one and four windows, a
    decode step's MLP products at 5 and 15 rows, the XTTS prefill; the
    library call ``torch.mm`` on a bf16-dequantized weight) and
@@ -42,7 +44,17 @@ exits non-zero without printing a result:
    request (the alignment call), a 180 s long-form request (13 windows in
    4 groups, the fused step at BK=20) and a coalesced batch of four;
 6. run the large-v2 encoder with the kernels and again with the plain
-   functions, and compare;
+   functions, and compare; then under ``WIS_NO_PACKED_FLASH`` (the
+   head-major kernel in every layer: bit-identical); serve one 3.84 s
+   request by the default route and under each of the JAX package's
+   switches (``WIS_NO_PACKED_FLASH``: the head-major kernel 32 times, the
+   same tokens; ``WIS_NO_FLASH``: no flash kernel; ``WIS_NO_LN_KERNEL``: no
+   LayerNorm kernel); run the converter self-test at large-v2 in this
+   process and as ``python -m wis_tpu_torch.cli convert-model --selftest
+   large-v2``; write a seeded large-v2 HF checkpoint (F16, two shards,
+   ~3.1 GB) under ``build/``, load it through the registry (every leaf
+   bit-equal to the conversion in memory), serve a request from it, load
+   it again from ``_converted_torch``, and delete it;
 7. build XTTS v2 at full width (30-layer GPT, D=1024, int8; HiFi-GAN) from
    seeded numpy weights on the card; hold the fused GPT step (bk=1, caches
    of 256 and 1152 positions, standard and trap inputs) and the fused
@@ -61,8 +73,12 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -72,6 +88,9 @@ from unittest import mock
 import numpy as np
 
 SAMPLE_RATE = 16000
+REPO = os.path.dirname(os.path.abspath(__file__))
+#: the JAX package's environment switches of the encoder's gates
+SWITCHES = ("WIS_NO_FLASH", "WIS_NO_PACKED_FLASH", "WIS_NO_LN_KERNEL")
 #: the H100's published peaks (SXM, dense, at 700 W): device memory, bf16
 #: tensor cores, f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -279,6 +298,80 @@ def check_flash(torch, dev):
                 times = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=library_ms)
     return dict(max_abs_err=max(rows), **times)
+
+
+#: head-major flash cases (B, H, T, Dh): large-v2's encoder and the other
+#: head widths the JAX gate sends to the head-major kernel — the micro
+#: configs' 32, 80, and 72 (Dh % 16 == 8)
+HEAD_MAJOR_CASES = ((1, 20, 1500, 64), (1, 10, 1500, 128), (2, 2, 700, 32),
+                    (1, 16, 1500, 80), (1, 18, 600, 72))
+
+
+def _head_major_inputs(torch, dev, b, h, t, dh, trap, seed, tail=64):
+    """Contiguous head-major (b, h, t, dh) bf16 q, k, v at the start of
+    allocations that run on for ``tail`` rows past the last head. With
+    ``trap``, _flash_inputs' trap in this layout: every real key scores 8
+    below the zeros the kernel fills a ragged key tile with, and the rows
+    past the last head hold keys 16 above the real ones with values of 50."""
+    rng = np.random.default_rng(seed)
+    n = b * h * t * dh
+    q, k, v = (rng.standard_normal(n + tail * dh, dtype=np.float32) for _ in range(3))
+    if trap:
+        c = (8 * dh ** 0.5) ** 0.5
+        q[:n].reshape(b, h, t, dh)[..., 0] = c
+        k[:n].reshape(b, h, t, dh)[..., 0] = -c
+        k[n:].reshape(tail, dh)[:, 0] = c
+        v[n:] = 50.0
+    return tuple(torch.from_numpy(x).to(dev, torch.bfloat16)[:n].view(b, h, t, dh)
+                 for x in (q, k, v))
+
+
+def check_head_major_flash(torch, dev):
+    """flash_attention against flash_attention_plain at HEAD_MAJOR_CASES
+    (the packed rule's tolerances), on standard inputs and, at large-v2's
+    shape and Dh=128, on the masked-key trap; at Dh 64 and 128 the output
+    after merge_heads must be bit-identical to the packed kernel's on the
+    same numbers (one kernel body for both layouts). Timed beside the
+    plain version and F.scaled_dot_product_attention on the same tensors."""
+    from wis_tpu_torch.ops.attention import merge_heads
+    from wis_tpu_torch.ops.flash import (
+        flash_attention,
+        flash_attention_packed,
+        flash_attention_plain,
+    )
+
+    rows, errs = {}, []
+    for b, h, t, dh in HEAD_MAJOR_CASES:
+        for trap in (False, True) if t == 1500 and dh in (64, 128) else (False,):
+            q, k, v = _head_major_inputs(torch, dev, b, h, t, dh, trap, seed=h + dh + trap)
+            got = flash_attention(q, k, v)
+            ref = flash_attention_plain(q, k, v)
+            same = None
+            if dh in (64, 128):
+                packed = flash_attention_packed(*(merge_heads(x) for x in (q, k, v)), h)
+                same = torch.equal(merge_heads(got), packed)
+            torch.cuda.synchronize()
+            bad, err, rel = flash_disagreement(got, ref)
+            case = f"flash_attention ({b},{h},{t},{dh}) bf16{' masked-key trap' if trap else ''}"
+            print(f"{case}: max|Δ| {err:.3e}, ‖Δ‖/‖plain‖ {rel:.3e} (tolerance "
+                  f"{FLASH_REL_NORM:.1e}), {bad} elements over 2 bf16 ulps + 2^-8·max|plain|"
+                  + ("" if same is None else f"; equal to packed: {same}"))
+            if bad or not rel <= FLASH_REL_NORM or same is False:
+                raise AssertionError(f"{case}: kernel disagrees with plain or with packed")
+            errs.append(err)
+            if trap:
+                continue
+            ms = _median_ms(lambda: flash_attention(q, k, v))
+            plain_ms = _median_ms(lambda: flash_attention_plain(q, k, v))
+            library_ms = _median_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+            bound_ms, bound_by = _bound(4 * q.numel() * 2, 4 * b * h * t * t * dh, BF16_FLOPS)
+            print(f"{case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"scaled_dot_product_attention {library_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by})")
+            rows[(h, dh)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, library_ms=library_ms)
+    return dict(max_abs_err=max(errs), **rows[(20, 64)])
 
 
 #: fused step vs plain at full width: bound on ‖Δ‖/‖plain‖ of x_out and of
@@ -1132,6 +1225,24 @@ def expect(what, cond):
         raise AssertionError(what)
 
 
+@contextlib.contextmanager
+def switched(*names):
+    """The JAX package's environment switches ``names`` set to 1 for the
+    block, every switch restored after it."""
+    old = {n: os.environ.get(n) for n in SWITCHES}
+    for n in SWITCHES:
+        os.environ.pop(n, None)
+    os.environ.update({n: "1" for n in names})
+    try:
+        yield
+    finally:
+        for n, v in old.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+
+
 def serve(torch, dev, engine, counters):
     """Every ASR request kind through the engine, each with the counters
     set to 0 just before it and read just after; each kind's launches
@@ -1146,7 +1257,8 @@ def serve(torch, dev, engine, counters):
 
     def encoder_runs(n, groups=1):
         expect(f"{groups} encoder calls: {n}",
-               n["layer_norm_cuda"] == MIN_LN * groups and n["flash_attention_packed"] == MIN_FLASH * groups)
+               n["layer_norm_cuda"] == MIN_LN * groups and n["flash_attention_packed"] == MIN_FLASH * groups
+               and n["flash_attention"] == 0)
 
     # the eager decoder: ancestry_attention once per layer and step,
     # int8_matmul for the 64 cross-KV, the 256 prefill and 256 per step
@@ -1239,11 +1351,18 @@ def serve(torch, dev, engine, counters):
 
 def check_encode(torch, dev, loaded):
     """The large-v2 encoder with the kernels, with the plain functions, and
-    in f32 with the plain functions (the reference)."""
+    in f32 with the plain functions (the reference); then under
+    ``WIS_NO_PACKED_FLASH``, where every layer's attention takes the
+    head-major kernel: 32 launches of it, none of the packed one, the
+    same bits as the default route."""
     from wis_tpu_torch.audio.mel import log_mel
     from wis_tpu_torch.models.whisper import model as model_mod
-    from wis_tpu_torch.ops.flash import flash_attention_packed_plain
-    from wis_tpu_torch.ops.layernorm import layer_norm_plain
+    from wis_tpu_torch.ops.flash import (
+        flash_attention,
+        flash_attention_packed,
+        flash_attention_packed_plain,
+    )
+    from wis_tpu_torch.ops.layernorm import layer_norm_cuda, layer_norm_plain
 
     def f32(tree):
         return {k: f32(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
@@ -1254,12 +1373,18 @@ def check_encode(torch, dev, loaded):
     plain_attn = mock.patch.object(
         model_mod, "flash_attention_packed", flash_attention_packed_plain
     )
+    counters = (flash_attention, flash_attention_packed, layer_norm_cuda)
     with torch.inference_mode():
         mel = log_mel(audio, cfg.n_mels)
         got = model_mod.encode(loaded.params, mel, cfg).float()
         with plain_ln, plain_attn:
             ref = model_mod.encode(loaded.params, mel, cfg).float()
             exact = model_mod.encode({"encoder": f32(loaded.params["encoder"])}, mel, cfg)
+        for c in counters:
+            c.launches = 0
+        with switched("WIS_NO_PACKED_FLASH"):
+            head_major = model_mod.encode(loaded.params, mel, cfg).float()
+        launched = [c.launches for c in counters]
     torch.cuda.synchronize()
     if got.shape != (1, 1500, 1280) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"encoder output {tuple(got.shape)} not finite")
@@ -1280,6 +1405,192 @@ def check_encode(torch, dev, loaded):
     )
     if not err <= 1.5 * floor:
         raise AssertionError(f"encoder with kernels off the f32 reference: {err} > 1.5 × {floor}")
+    err_hm = rel(head_major, exact)
+    same = torch.equal(head_major, got)
+    print(f"encode large-v2 under WIS_NO_PACKED_FLASH=1: launches flash_attention {launched[0]}, "
+          f"flash_attention_packed {launched[1]}, layer_norm_cuda {launched[2]}; relative ‖Δ‖ "
+          f"to the f32 encoder {err_hm:.3e} (tolerance 1.5 × {floor:.3e}); bit-identical to "
+          f"the default route: {same}")
+    if launched != [MIN_FLASH, 0, MIN_LN] or not err_hm <= 1.5 * floor or not same:
+        raise AssertionError(f"head-major encoder: launches {launched}, {err_hm}, same {same}")
+
+
+def serve_switched(torch, dev, engine, counters):
+    """One 3.84 s large-v2 beam-5 request on the fused path by the default
+    route, then under each of the JAX package's switches, each with the
+    counters set to 0 just before and read just after: WIS_NO_PACKED_FLASH
+    runs the head-major kernel 32 times and gives the default route's
+    tokens; WIS_NO_FLASH runs neither flash kernel (the plain attention,
+    the JAX package's XLA route); WIS_NO_LN_KERNEL no LayerNorm kernel.
+    → {switch: launches}."""
+    engine.settings.fused_decode = "auto"
+    audio = _audio_i16(3840, 20)
+
+    def call():
+        return engine.transcribe(audio, beam_size=5, max_tokens=32)
+
+    base = request(torch, dev, counters, "default route request 3.84s beam5 cap32", call)[0]
+    want = {
+        "WIS_NO_PACKED_FLASH": dict(flash_attention=MIN_FLASH, flash_attention_packed=0,
+                                    layer_norm_cuda=MIN_LN),
+        "WIS_NO_FLASH": dict(flash_attention=0, flash_attention_packed=0, layer_norm_cuda=MIN_LN),
+        "WIS_NO_LN_KERNEL": dict(flash_attention=0, flash_attention_packed=MIN_FLASH,
+                                 layer_norm_cuda=0),
+    }
+    out = {}
+    for switch, counts in want.items():
+        with switched(switch):
+            res, n, tok = request(torch, dev, counters, f"{switch}=1 request 3.84s beam5 cap32",
+                                  call)
+        same = res[0].text == base[0].text
+        print(f"{switch}=1: {', '.join(f'{k} {n[k]}' for k in counts)}; tokens equal to the "
+              f"default route's: {same}")
+        expect(f"{switch} launches {n}", all(n[k] == v for k, v in counts.items())
+               and n["fused_decode_step"] >= 1 and 1 <= tok[0] <= 32)
+        if switch == "WIS_NO_PACKED_FLASH":
+            expect("the head-major route changed the tokens", same)
+        out[switch] = n
+    expect(f"switches left set: {[n for n in SWITCHES if n in os.environ]}",
+           not any(n in os.environ for n in SWITCHES))
+    return out
+
+
+def check_selftest(torch, dev):
+    """The converter self-test at large-v2 in this process, then its entry
+    point as a user runs it: ``python -m wis_tpu_torch.cli convert-model
+    --selftest large-v2`` (on the card, the port's default)."""
+    from wis_tpu_torch.utils.selftest import whisper_selftest
+
+    torch.cuda.empty_cache()
+    report = whisper_selftest("large-v2", device=dev)
+    print(f"whisper_selftest large-v2 on {dev}: {json.dumps(report)}")
+    expect(f"selftest report {report}", report["encoder_out"] == (1, 1500, 1280)
+           and report["params"] > 1.5e9)
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "wis_tpu_torch.cli", "convert-model", "--selftest", "large-v2"]
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    line = res.stdout.strip().splitlines()[-1] if res.stdout.strip() else ""
+    print(f"{' '.join(cmd[1:])}: exit {res.returncode}, {line}")
+    if res.returncode != 0 or json.loads(line).get("selftest") != "ok":
+        raise AssertionError(f"convert-model --selftest failed: {res.stderr[-3000:]}")
+
+
+def _seeded_hf_checkpoint(torch, dev, cfg, seed):
+    """A seeded HF state dict of ``cfg`` as numpy float16 (``proj_out``
+    left out: tied to the token embedding, HF does not save it). Linear
+    and conv weights at 1/sqrt(fan_in), small biases, LayerNorm gains near
+    1; drawn on the card."""
+    from wis_tpu_torch.utils.selftest import hf_whisper_shapes
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, shape in hf_whisper_shapes(cfg).items():
+        if name == "proj_out.weight":
+            continue
+        a = torch.randn(shape, generator=g, device=dev)
+        if "layer_norm" in name:
+            a = a * 0.1 + (1.0 if name.endswith("weight") else 0.0)
+        elif name.endswith("bias"):
+            a = a * 0.02
+        else:
+            a = a / (shape[0] if "embed" in name else shape[1]) ** 0.5
+        out[name] = a.half().cpu().numpy()
+    return out
+
+
+def _write_safetensors(path, tensors):
+    """numpy float16 tensors as one safetensors file — the format in a few
+    lines (the card's machine has no ``safetensors``): an 8-byte
+    little-endian header length, the JSON header padded to 8 bytes, then
+    each tensor's bytes in order."""
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, a in tensors.items():
+        header[name] = {"dtype": "F16", "shape": list(a.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for a in tensors.values():
+            np.ascontiguousarray(a).tofile(f)
+
+
+def _tree_equal(a, b):
+    """(leaves, leaves bit-equal) of two parameter trees."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return 1, 0
+        counts = [_tree_equal(a[k], b[k]) for k in a]
+        return sum(n for n, _ in counts), sum(e for _, e in counts)
+    return 1, int(a.dtype == b.dtype and a.shape == b.shape and bool((a == b).all()))
+
+
+def check_checkpoint_round_trip(torch, dev, settings):
+    """A seeded large-v2 checkpoint in HF's key layout (F16, two shards)
+    written under build/, loaded through a registry whose model_dir points
+    there: every leaf bit-equal to params_from_hf of the same arrays in
+    memory (quantized as the registry does), one 3.84 s request served
+    from it, then a second load that reads ``_converted_torch`` and not the
+    safetensors. The directory is deleted at the end."""
+    from wis_tpu_torch.models.whisper import weights as wmod
+    from wis_tpu_torch.models.whisper.checkpoint import converted_path
+    from wis_tpu_torch.models.whisper.config import WHISPER_CONFIGS
+    from wis_tpu_torch.ops.quant import quantize_whisper_params
+    from wis_tpu_torch.runtime.engine import WhisperEngine
+    from wis_tpu_torch.runtime.residency import ModelRegistry
+
+    cfg = WHISPER_CONFIGS["large"]
+    root = os.path.join(REPO, "build", "checkpoint_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "large"))
+    try:
+        tensors = _seeded_hf_checkpoint(torch, dev, cfg, seed=13)
+        names = list(tensors)
+        n_bytes = sum(a.nbytes for a in tensors.values())
+        print(f"checkpoint round trip: large-v2, {len(names)} tensors, {n_bytes / 1e9:.3f} GB "
+              f"of F16 in 2 shards; {shutil.disk_usage(root).free / 1e9:.1f} GB free under build/")
+        t0 = time.perf_counter()
+        for i, part in enumerate((names[: len(names) // 2], names[len(names) // 2:])):
+            _write_safetensors(os.path.join(root, "large", f"model-{i + 1:05d}-of-00002.safetensors"),
+                               {n: tensors[n] for n in part})
+        write_s = time.perf_counter() - t0
+
+        local = dataclasses.replace(settings, model_dir=root)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine = WhisperEngine(ModelRegistry(local, dev))
+        loaded = engine.registry.get("large")
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        want = quantize_whisper_params(wmod.params_from_hf(
+            {n: torch.from_numpy(a) for n, a in tensors.items()}, cfg, engine.registry.dtype, dev))
+        leaves, equal = _tree_equal(loaded.params, want)
+        del want, tensors
+        res = engine.transcribe(_audio_i16(3840, 21), beam_size=5, max_tokens=32)
+        n_tok = len(re.findall(r"t\d+", res.text))
+        cache = converted_path(os.path.join(root, "large"), engine.registry.dtype)
+
+        refuse = mock.patch.object(wmod, "_hf_tensors",
+                                   side_effect=AssertionError("the second load read safetensors"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with refuse:
+            again = ModelRegistry(local, dev).get("large")
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        leaves2, equal2 = _tree_equal(again.params, loaded.params)
+        print(f"checkpoint round trip: written in {write_s:.2f} s; first load (safetensors → "
+              f"params_from_hf on {dev} → int8) {first_s:.2f} s, {equal} of {leaves} leaves "
+              f"bit-equal to params_from_hf in memory; request 3.84s beam5 cap32 from it: "
+              f"{n_tok} tokens, infer {res.infer_time_ms:.2f} ms; second load from "
+              f"_converted_torch ({os.path.getsize(cache) / 1e9:.3f} GB) {second_s:.2f} s, "
+              f"{equal2} of {leaves2} leaves equal to the first")
+        expect("checkpoint leaves differ", equal == leaves and equal2 == leaves2 == leaves)
+        expect(f"checkpoint request: {n_tok} tokens", 1 <= n_tok <= 32)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -1290,7 +1601,7 @@ def main() -> int:
         return 1
     from wis_tpu_torch.device import resolve_device
     from wis_tpu_torch.ops import _build
-    from wis_tpu_torch.ops.flash import flash_attention_packed
+    from wis_tpu_torch.ops.flash import flash_attention, flash_attention_packed
     from wis_tpu_torch.models.xtts.model import XTTSModel
     from wis_tpu_torch.ops.fused_decode import fused_decode_step
     from wis_tpu_torch.ops.fused_gpt import fused_gpt_step
@@ -1321,6 +1632,7 @@ def main() -> int:
 
     ln = check_layer_norm(torch, dev)
     fl = check_flash(torch, dev)
+    hm = check_head_major_flash(torch, dev)
     i8 = check_int8_matmul(torch, dev)
     anc = check_ancestry_attention(torch, dev)
 
@@ -1345,10 +1657,13 @@ def main() -> int:
     head = check_fused_head(torch, dev, loaded.cfg)
     grammar = check_grammar_head(torch, dev, loaded.cfg)
 
-    counters = (layer_norm_cuda, flash_attention_packed, int8_matmul, ancestry_attention,
-                fused_decode_step, fused_logits_topk, GrammarLaunches())
+    counters = (layer_norm_cuda, flash_attention_packed, flash_attention, int8_matmul,
+                ancestry_attention, fused_decode_step, fused_logits_topk, GrammarLaunches())
     served = serve(torch, dev, engine, counters)
     check_encode(torch, dev, loaded)
+    switched_n = serve_switched(torch, dev, engine, counters)
+    check_selftest(torch, dev)
+    check_checkpoint_round_trip(torch, dev, settings)
 
     t0 = time.perf_counter()
     xtts = XTTSModel(dev)
@@ -1399,18 +1714,21 @@ def main() -> int:
              replaces="wis_tpu/ops/decode_attn.py:83", **anc[5]),
         dict(name="fused_logits_topk(grammar)", source="wis_tpu_torch/csrc/fused_logits.cu",
              replaces="wis_tpu/ops/fused_logits.py:48", **grammar),
+        dict(name="flash_attention", source="wis_tpu_torch/csrc/flash_attention.cu",
+             replaces="wis_tpu/ops/flash.py:193", **hm),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the whisper rows and int8_matmul count the fused ASR requests (the
     # main path); ancestry_attention the eager request, the grammar head the
-    # timestamp request; the GPT step the default XTTS stream, the GPT head
-    # the fused-head stream
+    # timestamp request, head-major flash the WIS_NO_PACKED_FLASH request;
+    # the GPT step the default XTTS stream, the GPT head the fused-head stream
     fused = served["fused"]
     launches = [fused["layer_norm_cuda"], fused["flash_attention_packed"],
                 fused["fused_decode_step"], fused["fused_logits_topk"], step_n[0], head_n[1],
                 fused["int8_matmul"], served["eager"]["ancestry_attention"],
-                served["timestamps"]["fused_logits_topk(grammar)"]]
+                served["timestamps"]["fused_logits_topk(grammar)"],
+                switched_n["WIS_NO_PACKED_FLASH"]["flash_attention"]]
     for row, n in zip(rows, launches):
         row.update(route="cuda", launches=n)
     print(json.dumps({"kernels": [{key: row[key] for key in keys} for row in rows]}))

@@ -182,6 +182,152 @@ def test_encode_runs_both_kernels(dev):
     assert rel(got, exact) <= 1.5 * rel(plain, exact)
 
 
+# --------------------------------------------------------------------------- #
+# Head-major flash attention (the attention tolerances above) and the
+# encoder's routes under the JAX package's environment switches
+# --------------------------------------------------------------------------- #
+def _head_major_inputs(dev, b, h, t, dh, trap, seed):
+    """chip_smoke's head-major inputs: contiguous (b, h, t, dh) bf16 at the
+    start of allocations that run on past the last head; with ``trap`` an
+    unmasked ragged key tile, or a read past T of the last head, moves the
+    output far off."""
+    import chip_smoke
+
+    return chip_smoke._head_major_inputs(torch, dev, b, h, t, dh, trap, seed)
+
+
+def _assert_attention_close(got, want):
+    diff = (got.float() - want.float()).abs()
+    r = want.float()
+    assert float(diff.max()) <= 4 * 2.0 ** -8 * float(r.abs().max())
+    over = diff > 2 * _bf16_ulp(r) + 2.0 ** -8 * float(r.abs().max())
+    assert not bool(over.any()), f"{int(over.sum())} elements beyond tolerance"
+    assert float(diff.norm()) <= 6e-3 * float(r.norm())
+
+
+@pytest.mark.parametrize(
+    "b,h,t,dh",
+    [
+        (1, 20, 1500, 64),  # large-v2's encoder, head-major
+        (1, 10, 1500, 128),
+        (2, 2, 700, 32),  # the micro configs' head width
+        (1, 16, 1500, 80),
+        (1, 18, 600, 72),  # Dh % 16 == 8: half of the last k-slice is zero
+        (3, 2, 65, 8),  # the narrowest head; one key and one query past a tile
+        (1, 3, 200, 136),  # past 128: 32-key tiles
+        (1, 2, 1, 24),  # a single key
+        (1, 2, 97, 256),  # the widest head the kernel takes
+    ],
+)
+@pytest.mark.parametrize("trap", [False, True])
+def test_head_major_flash_matches_plain(dev, b, h, t, dh, trap):
+    from wis_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+
+    q, k, v = _head_major_inputs(dev, b, h, t, dh, trap, seed=t + dh + trap)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    if trap:
+        assert float(want.float().abs().max()) < 10  # the plain version reads no trap
+    _assert_attention_close(got, want)
+
+
+@pytest.mark.parametrize("heads,dh", [(20, 64), (2, 128), (3, 64)])
+def test_head_major_flash_bit_identical_to_packed(dev, heads, dh):
+    """One kernel body for both layouts: the same numbers give the same
+    bits after merge_heads."""
+    from wis_tpu_torch.ops.attention import merge_heads
+    from wis_tpu_torch.ops.flash import flash_attention, flash_attention_packed
+
+    q, k, v = _head_major_inputs(dev, 1, heads, 1500, dh, False, seed=heads)
+    head_major = merge_heads(flash_attention(q, k, v))
+    packed = flash_attention_packed(*(merge_heads(x) for x in (q, k, v)), heads)
+    torch.cuda.synchronize()
+    assert torch.equal(head_major, packed)
+
+
+def test_head_major_flash_refuses_what_the_kernel_does_not_take(dev):
+    from wis_tpu_torch.ops.flash import flash_attention
+
+    def z(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, device=dev, dtype=dtype)
+
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention(z(1, 2, 64, 60), z(1, 2, 64, 60), z(1, 2, 64, 60))
+    with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+        flash_attention(z(1, 1, 64, 264), z(1, 1, 64, 264), z(1, 1, 64, 264))
+    q = z(1, 2, 64, 64)
+    with pytest.raises(ValueError, match="bf16"):
+        flash_attention(q, q.float(), q)
+    with pytest.raises(ValueError, match="bf16"):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, q, z(1, 64, 2, 64).transpose(1, 2))
+    with pytest.raises(ValueError, match="B, H, T, Dh"):
+        flash_attention(z(2, 64, 64), z(2, 64, 64), z(2, 64, 64))
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(q, q, z(1 * 2 * 64 * 64 + 1)[1:].view(1, 2, 64, 64))
+    assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize(
+    "env,heads,want",
+    [
+        ((), 2, dict(packed=2, head_major=0, ln=5)),  # head_dim 64: packed
+        (("WIS_NO_PACKED_FLASH",), 2, dict(packed=0, head_major=2, ln=5)),
+        (("WIS_NO_FLASH",), 2, dict(packed=0, head_major=0, ln=5)),
+        (("WIS_NO_LN_KERNEL",), 2, dict(packed=2, head_major=0, ln=0)),
+        ((), 4, dict(packed=0, head_major=2, ln=5)),  # head_dim 32: head-major
+        (("WIS_NO_FLASH", "WIS_NO_LN_KERNEL"), 4, dict(packed=0, head_major=0, ln=0)),
+    ],
+)
+def test_encoder_routes_under_each_switch(dev, monkeypatch, env, heads, want):
+    """A narrow bf16 encoder on the card launches the kernels the JAX gate
+    names under each switch, and every route sits no farther from the f32
+    encoder than the plain bf16 one does, up to 1.5×; the two flash routes
+    give the same bits."""
+    from wis_tpu_torch.models.whisper import model as model_mod
+    from wis_tpu_torch.models.whisper.config import WhisperConfig
+    from wis_tpu_torch.models.whisper.weights import random_params
+    from wis_tpu_torch.ops.flash import flash_attention, flash_attention_packed
+    from wis_tpu_torch.ops.layernorm import layer_norm_cuda
+
+    for name in ("WIS_NO_FLASH", "WIS_NO_PACKED_FLASH", "WIS_NO_LN_KERNEL"):
+        monkeypatch.delenv(name, raising=False)
+    cfg = WhisperConfig(name="narrow", n_audio_state=128, n_audio_head=heads,
+                        n_audio_layer=2, n_text_state=128, n_text_head=heads,
+                        n_text_layer=2)
+    params = random_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    f32 = {"encoder": random_params(cfg, seed=0, device=dev, dtype=torch.float32)["encoder"]}
+    mel = _randn(np.random.default_rng(9), (1, cfg.n_mels, 3000), dev, torch.float32)
+    counters = (flash_attention_packed, flash_attention, layer_norm_cuda)
+    with torch.inference_mode():
+        default = model_mod.encode(params, mel, cfg).float()
+        for name in env:
+            monkeypatch.setenv(name, "1")
+        before = [c.launches for c in counters]
+        got = model_mod.encode(params, mel, cfg).float()
+        launched = [c.launches - n for c, n in zip(counters, before)]
+        monkeypatch.setenv("WIS_NO_FLASH", "1")
+        monkeypatch.setenv("WIS_NO_LN_KERNEL", "1")
+        plain = model_mod.encode(params, mel, cfg).float()
+        exact = model_mod.encode(f32, mel, cfg)
+    torch.cuda.synchronize()
+    assert launched == [want["packed"], want["head_major"], want["ln"]]
+    assert got.shape == (1, 1500, 128) and bool(torch.isfinite(got).all())
+    if "WIS_NO_FLASH" not in env and "WIS_NO_LN_KERNEL" not in env:
+        assert torch.equal(got, default)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    assert rel(got, exact) <= 1.5 * rel(plain, exact)
+
+
 def test_float32_on_the_card_is_refused_not_run_plain(dev):
     """The flash kernel takes bf16 only: an f32 encoder on the card raises
     in the kernel's wrapper, and an f32 registry on the card is refused."""

@@ -9,6 +9,8 @@ counterpart is easy to find:
                               hand-written Hopper kernels (``csrc/``)
     wis_tpu_torch.decoding  — language detect, beam search, the ASR program
     wis_tpu_torch.runtime   — model registry and the transcription engine
+    wis_tpu_torch.utils     — the converter self-test
+    wis_tpu_torch.cli       — ``python -m wis_tpu_torch.cli convert-model``
 
 It imports ``torch`` and never ``jax``: nothing here loads the
 ``wis_tpu`` package, so it runs on a machine without JAX. The JAX package

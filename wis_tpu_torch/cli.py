@@ -1,0 +1,96 @@
+"""Command line of the PyTorch port.
+
+    python -m wis_tpu_torch.cli convert-model --selftest <size> [--no-forward]
+    python -m wis_tpu_torch.cli convert-model <src> --size <size>
+
+``convert-model`` is the port's counterpart of ``wisctl convert-model``
+(Whisper sizes): ``--selftest`` converts a synthetic full-dims HF
+checkpoint and runs one encoder pass plus the cross-KV projection
+(``utils/selftest.py``), printing the report as one JSON line; with a
+checkpoint directory ``<src>`` it converts the safetensors there and runs
+the encoder once. Both print what ``wisctl`` prints. Per the port's device
+policy both run on the card unless ``--device cpu`` asks for the CPU
+(``wisctl`` runs its self-test on the CPU).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import List, Optional
+
+
+def cmd_convert_model(args) -> int:
+    if args.selftest:
+        from wis_tpu_torch.utils.selftest import whisper_selftest
+
+        report = whisper_selftest(args.selftest, forward=not args.no_forward,
+                                  device=args.device)
+        print(json.dumps({"selftest": "ok", **report}))
+        return 0
+    if not args.src or not args.size:
+        print("convert-model without --selftest needs <src> and a "
+              "whisper size", file=sys.stderr)
+        return 1
+
+    import torch
+
+    from wis_tpu_torch.device import resolve_device
+    from wis_tpu_torch.models.whisper.config import WHISPER_CONFIGS, resolve_model_name
+    from wis_tpu_torch.models.whisper.model import encode
+    from wis_tpu_torch.models.whisper.weights import _hf_tensors, params_from_hf
+
+    device = resolve_device(args.device)
+    cfg = WHISPER_CONFIGS[resolve_model_name(args.size)]
+    tensors = _hf_tensors(args.src)
+    if not tensors:
+        print(f"no safetensors found in {args.src}", file=sys.stderr)
+        return 1
+    params = params_from_hf(tensors, cfg, torch.bfloat16, device)
+    with torch.inference_mode():
+        out = encode(params, torch.zeros((1, cfg.n_mels, 3000), device=device), cfg)
+        assert bool(torch.isfinite(out).all())
+    print(f"converted {args.size}: encoder OK, output {tuple(out.shape)}")
+    return 0
+
+
+def _size(name: str) -> str:
+    from wis_tpu_torch.models.whisper.config import resolve_model_name
+
+    try:
+        resolve_model_name(name)
+    except KeyError:
+        raise argparse.ArgumentTypeError(f"unknown whisper size {name!r}") from None
+    return name
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="python -m wis_tpu_torch.cli")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    c = sub.add_parser(
+        "convert-model",
+        help="validate a local HF checkpoint, or --selftest the converter "
+        "against a synthetic checkpoint at the size's REAL dims",
+    )
+    c.add_argument("src", nargs="?", default=None,
+                   help="HF checkpoint dir (omit with --selftest)")
+    c.add_argument("--size", type=_size, help="whisper size of <src>")
+    c.add_argument("--selftest", metavar="SIZE", type=_size,
+                   help="synthesize a full-dims checkpoint of this whisper size "
+                   "and convert it")
+    c.add_argument("--no-forward", action="store_true",
+                   help="with --selftest: skip the encoder pass")
+    c.add_argument("--device", default="cuda",
+                   help="cuda (the default), cuda:N or cpu")
+    c.set_defaults(fn=cmd_convert_model)
+    return parser
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,11 +1,18 @@
-// Packed-layout flash attention (unmasked, encoder self-attention) —
-// Hopper (sm_90a).
+// Flash attention for the encoder (unmasked self-attention), in both of the
+// JAX package's layouts — Hopper (sm_90a).
 //
-// Replaces the TPU kernel wis_tpu/ops/flash.py `flash_attention_packed`
-// (body `_kernel_packed`): softmax(q·kᵀ/√Dh)·v per head, with an online
-// softmax in f32 and keys at or past T masked. q, k, v and the output are
-// read and written in the packed (B, T, D) layout, heads side by side
-// along D, so no head transposes go through device memory.
+// Replaces the TPU kernels wis_tpu/ops/flash.py `flash_attention_packed`
+// (body `_kernel_packed`) and `flash_attention` (body `_kernel`):
+// softmax(q·kᵀ/√Dh)·v per head, with an online softmax in f32 and keys at
+// or past T masked. One kernel body serves both layouts; it is told where a
+// (batch, head) starts and how far apart two rows are:
+//
+//   packed (B, T, D), heads side by side along D: row stride D, head
+//     offset h·Dh, batch offset b·T·D — no head transposes through memory;
+//   head-major (B, H, T, Dh): row stride Dh, head offset h·T·Dh, batch
+//     offset b·H·T·Dh.
+//
+// So the same numbers give bit-identical outputs in either layout.
 //
 // Bound on the H100: at the encoder's shapes (T=1500, Dh=64, H=20) the
 // work is 4·T²·D ≈ 11.5 GFLOP per layer against ~15 MB of q/k/v/out, so
@@ -13,15 +20,22 @@
 // design therefore keeps the T×T scores out of device memory entirely
 // and feeds the tensor cores: one block of 4 warps per (query tile of 64,
 // head, batch); each warp owns 16 query rows whose Q fragments stay in
-// registers; K and V tiles of 64 keys go through shared memory (V stored
-// transposed so its fragments are 32-bit loads); S = Q·Kᵀ and O += P·V run
-// as bf16 mma.sync.m16n8k16 with f32 accumulators; the S accumulators are
+// registers; K and V tiles go through shared memory (V stored transposed
+// so its fragments are 32-bit loads); S = Q·Kᵀ and O += P·V run as bf16
+// mma.sync.m16n8k16 with f32 accumulators; the S accumulators are
 // rescaled, exponentiated and repacked to bf16 in registers as the A
 // operand of the P·V product (the FlashAttention-2 layout identity). The
 // ragged last key tile (1500 is no multiple of 64) is zero-filled in
 // shared memory and masked in registers; nothing is padded in device
 // memory. This first version does not pipeline the tile loads (no
 // cp.async/TMA) and uses mma.sync rather than wgmma.
+//
+// Head widths: every multiple of 8 up to 256 (the JAX gate takes any
+// Dh % 8 == 0). Q·Kᵀ contracts over Dh in 16-wide slices; where
+// Dh % 16 == 8 the upper half of the last slice is zero in both operands'
+// registers (neither Q nor K is read there). Key tiles are 64 keys wide up
+// to Dh = 128 and 32 above, which keeps the static shared memory under
+// 48 KB and the score registers at 16 per thread.
 //
 // Plain C interface for ctypes; launches on the caller's stream and
 // returns cudaGetLastError().
@@ -39,40 +53,45 @@ using wis::mma_bf16_16816;
 using wis::pack_bf16;
 
 constexpr int kBlockQ = 64;   // query rows per block (16 per warp)
-constexpr int kBlockK = 64;   // keys per shared-memory tile
 constexpr int kWarps = 4;
 constexpr int kPad = 8;       // bf16 elements of row padding (bank spread)
+constexpr int kMaxDh = 256;
 constexpr float kNegInf = -1e30f;
 
-template <int DH>
+template <int DH, int BK>
 __global__ void __launch_bounds__(kWarps * 32)
-flash_packed_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ o, int T, int D,
-                    float scale_log2) {
-  __shared__ alignas(16) __nv_bfloat16 ks[kBlockK][DH + kPad];
-  __shared__ alignas(16) __nv_bfloat16 vt[DH][kBlockK + kPad];
+flash_kernel(const __nv_bfloat16* __restrict__ q,
+             const __nv_bfloat16* __restrict__ k,
+             const __nv_bfloat16* __restrict__ v,
+             __nv_bfloat16* __restrict__ o, int T, long long row_stride,
+             long long head_stride, long long batch_stride, float scale_log2) {
+  constexpr int KS = (DH + 15) / 16;  // 16-wide slices of the contraction
+  __shared__ alignas(16) __nv_bfloat16 ks[BK][DH + kPad];
+  __shared__ alignas(16) __nv_bfloat16 vt[DH][BK + kPad];
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;   // mma group: rows g and g + 8
   const int t4 = lane & 3;   // thread in group: columns 2·t4, 2·t4 + 1
-  // element (b, t, h·DH + d) of a packed tensor sits at base + t·D + d
-  const size_t base = static_cast<size_t>(blockIdx.z) * T * D +
-                      static_cast<size_t>(blockIdx.y) * DH;
+  // element d of row t of this (batch, head) sits at base + t·row_stride + d
+  const size_t base = static_cast<size_t>(blockIdx.z) * batch_stride +
+                      static_cast<size_t>(blockIdx.y) * head_stride;
   const int r0 = blockIdx.x * kBlockQ + warp * 16 + g;
   const int r1 = r0 + 8;
+  const __nv_bfloat16* q0 = q + base + static_cast<size_t>(r0) * row_stride;
+  const __nv_bfloat16* q1 = q + base + static_cast<size_t>(r1) * row_stride;
 
-  // this warp's Q rows as A fragments, one per 16-wide slice of DH
-  uint32_t qa[DH / 16][4];
+  // this warp's Q rows as A fragments, one per 16-wide slice of DH; the
+  // upper half of a last slice past DH is zero
+  uint32_t qa[KS][4];
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     const int c = kk * 16 + t4 * 2;
-    qa[kk][0] = r0 < T ? load_pair(q + base + static_cast<size_t>(r0) * D + c) : 0u;
-    qa[kk][1] = r1 < T ? load_pair(q + base + static_cast<size_t>(r1) * D + c) : 0u;
-    qa[kk][2] = r0 < T ? load_pair(q + base + static_cast<size_t>(r0) * D + c + 8) : 0u;
-    qa[kk][3] = r1 < T ? load_pair(q + base + static_cast<size_t>(r1) * D + c + 8) : 0u;
+    const bool hi = kk * 16 + 8 < DH;
+    qa[kk][0] = r0 < T ? load_pair(q0 + c) : 0u;
+    qa[kk][1] = r1 < T ? load_pair(q1 + c) : 0u;
+    qa[kk][2] = hi && r0 < T ? load_pair(q0 + c + 8) : 0u;
+    qa[kk][3] = hi && r1 < T ? load_pair(q1 + c + 8) : 0u;
   }
 
   float acc[DH / 8][4];
@@ -81,16 +100,16 @@ flash_packed_kernel(const __nv_bfloat16* __restrict__ q,
   float m0 = kNegInf, m1 = kNegInf;  // running max (log2 units), rows g / g+8
   float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
 
-  for (int k0 = 0; k0 < T; k0 += kBlockK) {
+  for (int k0 = 0; k0 < T; k0 += BK) {
     __syncthreads();  // the previous tile is no longer read
-    for (int idx = threadIdx.x; idx < kBlockK * DH / 8; idx += kWarps * 32) {
+    for (int idx = threadIdx.x; idx < BK * DH / 8; idx += kWarps * 32) {
       const int r = idx / (DH / 8);
       const int c = (idx % (DH / 8)) * 8;
       const int key = k0 + r;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u);
       uint4 vv = make_uint4(0u, 0u, 0u, 0u);
       if (key < T) {
-        const size_t off = base + static_cast<size_t>(key) * D + c;
+        const size_t off = base + static_cast<size_t>(key) * row_stride + c;
         kv = *reinterpret_cast<const uint4*>(k + off);
         vv = *reinterpret_cast<const uint4*>(v + off);
       }
@@ -101,22 +120,23 @@ flash_packed_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
-    // S = Q·Kᵀ for 16 rows × 64 keys: 8 accumulator tiles of 16×8
-    float s[kBlockK / 8][4];
+    // S = Q·Kᵀ for 16 rows × BK keys: BK/8 accumulator tiles of 16×8
+    float s[BK / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
+    for (int nt = 0; nt < BK / 8; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
+      for (int kk = 0; kk < KS; ++kk) {
         const __nv_bfloat16* kp = &ks[nt * 8 + g][kk * 16 + t4 * 2];
-        mma_bf16_16816(s[nt], qa[kk], load_pair(kp), load_pair(kp + 8));
+        const uint32_t b1 = kk * 16 + 8 < DH ? load_pair(kp + 8) : 0u;
+        mma_bf16_16816(s[nt], qa[kk], load_pair(kp), b1);
       }
     }
 
     // scale into log2 units, mask keys >= T, row maxima over the group
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
+    for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const bool valid = k0 + nt * 8 + t4 * 2 + j < T;
@@ -140,7 +160,7 @@ flash_packed_kernel(const __nv_bfloat16* __restrict__ q,
 
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
+    for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         s[nt][j] = exp2f(s[nt][j] - mn0);
@@ -161,7 +181,7 @@ flash_packed_kernel(const __nv_bfloat16* __restrict__ q,
 
     // O += P·V: two adjacent S tiles form one bf16 A fragment (16 × 16 keys)
 #pragma unroll
-    for (int kc = 0; kc < kBlockK / 16; ++kc) {
+    for (int kc = 0; kc < BK / 16; ++kc) {
       uint32_t pa[4];
       pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
       pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
@@ -182,43 +202,81 @@ flash_packed_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  __nv_bfloat16* o0 = o + base + static_cast<size_t>(r0) * row_stride;
+  __nv_bfloat16* o1 = o + base + static_cast<size_t>(r1) * row_stride;
 #pragma unroll
   for (int dt = 0; dt < DH / 8; ++dt) {
     const int c = dt * 8 + t4 * 2;
     if (r0 < T)
-      *reinterpret_cast<__nv_bfloat162*>(o + base + static_cast<size_t>(r0) * D + c) =
+      *reinterpret_cast<__nv_bfloat162*>(o0 + c) =
           __floats2bfloat162_rn(acc[dt][0] * inv0, acc[dt][1] * inv0);
     if (r1 < T)
-      *reinterpret_cast<__nv_bfloat162*>(o + base + static_cast<size_t>(r1) * D + c) =
+      *reinterpret_cast<__nv_bfloat162*>(o1 + c) =
           __floats2bfloat162_rn(acc[dt][2] * inv1, acc[dt][3] * inv1);
   }
+}
+
+struct Launch {
+  const __nv_bfloat16 *q, *k, *v;
+  __nv_bfloat16* o;
+  int B, H, T;
+  long long row_stride, head_stride, batch_stride;
+  float scale_log2;
+  cudaStream_t stream;
+};
+
+template <int DH>
+int launch(const Launch& a) {
+  constexpr int BK = DH <= 128 ? 64 : 32;
+  const dim3 grid((a.T + kBlockQ - 1) / kBlockQ, a.H, a.B);
+  flash_kernel<DH, BK><<<grid, kWarps * 32, 0, a.stream>>>(
+      a.q, a.k, a.v, a.o, a.T, a.row_stride, a.head_stride, a.batch_stride, a.scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the instance for head width dh: one per multiple of 8 up to kMaxDh
+template <int DH = 8>
+int dispatch(int dh, const Launch& a) {
+  if (dh == DH) return launch<DH>(a);
+  if constexpr (DH < kMaxDh) {
+    return dispatch<DH + 8>(dh, a);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int run(const void* q, const void* k, const void* v, void* o, int B, int H, int T,
+        int dh, long long row_stride, long long head_stride, long long batch_stride,
+        float scale, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || B > 65535 || H > 65535 || dh % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Launch a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+                 static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+                 B, H, T, row_stride, head_stride, batch_stride,
+                 scale * 1.4426950408889634f, static_cast<cudaStream_t>(stream)};
+  return dispatch(dh, a);
 }
 
 }  // namespace
 
 // q, k, v, o: (B, T, D) bf16, contiguous, 16-byte aligned; D = H · head_dim
-// with head_dim 64 or 128 (the Python wrapper checks). scale = head_dim^-0.5.
+// (the Python wrapper admits head_dim 64 or 128, the JAX package's packed
+// gate). scale = head_dim^-0.5.
 extern "C" int wis_flash_attention_packed(const void* q, const void* k,
                                           const void* v, void* o, int B, int T,
                                           int D, int H, float scale,
                                           void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || D % H != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (H <= 0 || D % H != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int dh = D / H;
-  const dim3 grid((T + kBlockQ - 1) / kBlockQ, H, B);
-  const dim3 block(kWarps * 32);
-  const float scale_log2 = scale * 1.4426950408889634f;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  auto* op = static_cast<__nv_bfloat16*>(o);
-  if (dh == 64) {
-    flash_packed_kernel<64><<<grid, block, 0, s>>>(qp, kp, vp, op, T, D, scale_log2);
-  } else if (dh == 128) {
-    flash_packed_kernel<128><<<grid, block, 0, s>>>(qp, kp, vp, op, T, D, scale_log2);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run(q, k, v, o, B, H, T, dh, D, dh, static_cast<long long>(T) * D, scale,
+             stream);
+}
+
+// q, k, v, o: (B, H, T, Dh) bf16, contiguous, 16-byte aligned; Dh a
+// multiple of 8 up to 256. scale = Dh^-0.5.
+extern "C" int wis_flash_attention(const void* q, const void* k, const void* v,
+                                   void* o, int B, int H, int T, int Dh,
+                                   float scale, void* stream) {
+  const long long head = static_cast<long long>(T) * Dh;
+  return run(q, k, v, o, B, H, T, Dh, Dh, head, head * H, scale, stream);
 }

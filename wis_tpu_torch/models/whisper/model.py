@@ -14,30 +14,32 @@ The public layouts are the JAX package's: cross-attention K/V and the
 self-attention cache are time-minor ``(L, B, H, Dh, T)``; the decoder
 writes its K/V columns into the cache tensors in place.
 
-On a CUDA device the encoder runs the two hand-written Hopper kernels, under
-the JAX package's shape gates: every LayerNorm with D % 128 == 0 goes to
-``ops/layernorm.layer_norm_cuda``, and self-attention over T ≥ 512 with
-head_dim 64 or 128 goes to ``ops/flash.flash_attention_packed``, which
-takes bf16 only. On the CPU both take the plain formulas, as the JAX
-package does off TPU. The eager decoder's beam self-attention runs the
-``ops/decode_attn.ancestry_attention`` kernel on a CUDA device, and every
+On a CUDA device the encoder runs the hand-written Hopper kernels under the
+JAX package's gates (``wis_tpu/models/whisper/model.py`` ``_attn_block``
+and ``_enc_ln``), with the device type standing in for JAX's backend and
+the same environment switches, read at each call: every LayerNorm with
+D % 128 == 0 goes to ``ops/layernorm.layer_norm_cuda`` unless
+``WIS_NO_LN_KERNEL`` is set, and self-attention takes the route
+``attention_route`` names — the packed or the head-major flash kernel
+(``ops/flash``, bf16 only), or the plain formula. On the CPU everything
+takes the plain formulas, as the JAX package does off TPU. The eager
+decoder's beam self-attention runs ``ops/decode_attn.ancestry_attention``
+(the kernel on a CUDA device, its plain version on the CPU), and every
 int8 product the ``ops/quant.int8_matmul`` kernel (through ``qmatmul``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from wis_tpu_torch.models.whisper.config import WhisperConfig
 from wis_tpu_torch.models.whisper.stem import conv_stem
-from wis_tpu_torch.ops.attention import NEG_INF, merge_heads, qkv_heads
+from wis_tpu_torch.ops.attention import NEG_INF, merge_heads, mha, qkv_heads
 from wis_tpu_torch.ops.decode_attn import ancestry_attention, global_rows
-from wis_tpu_torch.ops.flash import (
-    flash_attention_packed,
-    flash_attention_packed_plain,
-)
+from wis_tpu_torch.ops.flash import flash_attention, flash_attention_packed
 from wis_tpu_torch.ops.gelu import gelu
 from wis_tpu_torch.ops.layernorm import layer_norm_cuda
 from wis_tpu_torch.ops.layernorm import layer_norm_plain as layer_norm
@@ -60,30 +62,38 @@ def _linear(x, w, b=None):
     return y
 
 
-def _flash_ok(x: torch.Tensor, n_heads: int) -> bool:
-    """The JAX package's gate, by device and shape only: a CUDA tensor of
-    another dtype than bf16 reaches the kernel's wrapper, which raises."""
-    d = x.shape[-1]
-    return (
-        x.is_cuda
-        and x.shape[-2] >= 512
-        and d % n_heads == 0
-        and d // n_heads in (64, 128)
-    )
+def attention_route(device_type: str, t: int, d: int, n_heads: int) -> str:
+    """Which attention the encoder's self-attention over (B, t, d) takes:
+    ``"packed"``, ``"head_major"`` or ``"plain"`` — the JAX package's rule
+    (``wis_tpu/models/whisper/model.py`` ``_attn_block``), with the device
+    type for ``jax.default_backend()``. ``WIS_NO_FLASH`` sends every call to
+    the plain formula, ``WIS_NO_PACKED_FLASH`` head widths 64 and 128 to the
+    head-major kernel."""
+    if device_type == "cpu" or t < 512 or os.environ.get("WIS_NO_FLASH"):
+        return "plain"
+    dh = d // n_heads
+    if dh in (64, 128) and not os.environ.get("WIS_NO_PACKED_FLASH"):
+        return "packed"
+    return "head_major" if dh % 8 == 0 else "plain"
 
 
 def _attn_block(x, blk, n_heads):
     """Encoder self-attention for one layer. Long sequences on the card
-    run the packed flash kernel: q/k/v stay (B, T, D) end to end and the
-    (H, T, T) scores never reach device memory."""
+    run a flash kernel, so the (H, T, T) scores never reach device memory:
+    the packed one keeps q/k/v (B, T, D) end to end, the head-major one
+    takes them split into heads, as the JAX package's does."""
     q = _linear(x, blk["q_w"], blk["q_b"])
     k = _linear(x, blk["k_w"])
     v = _linear(x, blk["v_w"], blk["v_b"])
-    if _flash_ok(x, n_heads):
-        attn = flash_attention_packed
+    route = attention_route(x.device.type, x.shape[-2], x.shape[-1], n_heads)
+    if route == "packed":
+        return _linear(flash_attention_packed(q, k, v, n_heads), blk["o_w"], blk["o_b"])
+    q, k, v = (qkv_heads(t, n_heads) for t in (q, k, v))
+    if route == "head_major":
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     else:
-        attn = flash_attention_packed_plain
-    return _linear(attn(q, k, v, n_heads), blk["o_w"], blk["o_b"])
+        out = mha(q, k, v)
+    return _linear(merge_heads(out), blk["o_w"], blk["o_b"])
 
 
 def _mlp(x, blk):
@@ -91,10 +101,18 @@ def _mlp(x, blk):
     return _linear(h, blk["w2"], blk["b2"])
 
 
+def layer_norm_route(device_type: str, d: int) -> str:
+    """``"kernel"`` or ``"plain"`` for an encoder LayerNorm over rows of d:
+    the JAX package's ``_enc_ln`` rule, ``WIS_NO_LN_KERNEL`` included."""
+    if device_type != "cpu" and d % 128 == 0 and not os.environ.get("WIS_NO_LN_KERNEL"):
+        return "kernel"
+    return "plain"
+
+
 def _enc_ln(x, g, b):
     """Encoder LayerNorm: the CUDA kernel on the card, the plain formula
     elsewhere."""
-    if x.is_cuda and x.shape[-1] % 128 == 0:
+    if layer_norm_route(x.device.type, x.shape[-1]) == "kernel":
         return layer_norm_cuda(x, g, b)
     return layer_norm(x, g, b)
 
@@ -206,33 +224,16 @@ def _decoder_pass(
 
     # Ancestry-indirect beam attention (single-token decode): beams never
     # permute the cache; anc[b, k, s] names the physical row that holds
-    # logical beam k's history at position s (-1 = unwritten). Scores run
-    # against all K physical rows and sel picks each position's true row.
+    # logical beam k's history at position s (-1 = unwritten), and
+    # ancestry_attention reads each position's key and value from that row
+    # (the kernel on the card, its plain version on the CPU).
     if anc is not None:
-        k_beams = anc.shape[1]
-        bq = anc.shape[0]
-        if device.type == "cuda":
-            # the kernel reads the flat cache's physical rows directly
-            ganc = global_rows(anc)
-        else:
-            rows = torch.arange(k_beams, device=device)
-            # sel[b, k, p, s] = physical row p holds (b, k)'s history at s
-            sel = (anc[..., None] == rows).transpose(-1, -2)  # (Bq, K, K, T)
+        ganc = global_rows(anc)
 
     def _self_attn_anc(q, ck, cv):
         # q (BK, H, 1, Dh); ck/cv (BK, H, Dh, T_max), rows grouped (Bq, K)
-        if device.type == "cuda":
-            out = ancestry_attention(q[:, :, 0].contiguous(), ck, cv, ganc, pos_offset)
-            return out[:, :, None]
-        qk = q.reshape(bq, k_beams, n_head, dh)
-        ckk = ck.reshape(bq, k_beams, *ck.shape[1:])
-        cvv = cv.reshape(bq, k_beams, *cv.shape[1:])
-        scores = torch.einsum("bkhd,bphds->bkhps", qk.float(), ckk.float()) * scale
-        scores = torch.where(sel[:, :, None], scores, NEG_INF)
-        w = torch.softmax(scores.reshape(bq, k_beams, n_head, -1), dim=-1)
-        w = w.reshape(scores.shape).to(cv.dtype)
-        out = torch.einsum("bkhps,bphds->bkhd", w, cvv)
-        return out.reshape(b, n_head, 1, dh)
+        out = ancestry_attention(q[:, :, 0].contiguous(), ck, cv, ganc, pos_offset)
+        return out[:, :, None]
 
     def _cross_attn(q, xk, xv):
         # q (B, H, T, Dh) → grouped (Bx, G, H, T, Dh); xk/xv (Bx, H, Dh, S)

@@ -3,8 +3,14 @@
 
 The tree keeps the JAX package's layout (stacked layers with a leading
 layer axis, (in, out) matmul weights, int8 leaves as ``{"q", "s"}``; see
-``model.py``). Two sources:
+``model.py``). Three sources:
 
+- ``load_or_init_params(cfg, model_dir, seed, device, dtype)`` reads an HF
+  checkpoint (``*.safetensors`` in ``model_dir``, with this package's own
+  reader, ``safetensors_io.py``) and converts it with ``params_from_hf``,
+  leaf for leaf the JAX package's conversion; the converted tree is cached
+  under ``<model_dir>/_converted_torch`` (``checkpoint.py``). Without a
+  checkpoint it falls back to ``random_params``, as the JAX package does.
 - ``params_from_jax(tree, device)`` bridges a tree the JAX package built, given
   as numpy arrays (``np.asarray`` of each leaf). Every leaf is taken as it
   is — bf16 bit patterns, int8 ``{q, s}`` leaves and ``tok_emb_q``
@@ -12,20 +18,25 @@ layer axis, (in, out) matmul weights, int8 leaves as ``{"q", "s"}``; see
 - ``random_params(cfg, seed, device, dtype)`` draws seeded random weights
   with the same shapes, dtypes and scales as the JAX package's
   ``random_params``, from a ``torch.Generator`` on the target device, so a
-  large-v2 model is made on the card in seconds. The numbers differ from
+  large-v2 model is made on the card in seconds (on the ``meta`` device it
+  gives the shapes and dtypes alone). The numbers differ from
   ``jax.random``'s; tests that compare the two packages bridge one weight
   set instead.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import logging
+import os
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from wis_tpu_torch.device import DeviceLike
 from wis_tpu_torch.models.whisper.config import WhisperConfig
+
+logger = logging.getLogger("wis_tpu_torch")
 
 
 def sinusoid_positions(length: int, channels: int) -> np.ndarray:
@@ -57,7 +68,9 @@ def params_from_jax(tree: Dict, device: DeviceLike) -> Dict:
 
 class _Init:
     def __init__(self, seed: int, device: torch.device, dtype: torch.dtype):
-        self.gen = torch.Generator(device=device).manual_seed(seed)
+        # the meta device draws nothing: its tree carries shapes and dtypes
+        self.gen = (None if device.type == "meta"
+                    else torch.Generator(device=device).manual_seed(seed))
         self.device = device
         self.dtype = dtype
 
@@ -136,3 +149,146 @@ def random_params(
             },
         },
     }
+
+
+# --------------------------------------------------------------------------- #
+# HF safetensors conversion
+# --------------------------------------------------------------------------- #
+def _hf_tensors(model_dir: str) -> Optional[Dict[str, torch.Tensor]]:
+    """Every tensor of the HF safetensors shard(s) in model_dir, shards in
+    sorted filename order (a later shard's key wins), as CPU tensors over
+    memory maps; None without a ``*.safetensors`` file."""
+    from wis_tpu_torch.models.whisper.safetensors_io import read_safetensors
+
+    files = sorted(f for f in os.listdir(model_dir) if f.endswith(".safetensors"))
+    if not files:
+        return None
+    tensors: Dict[str, torch.Tensor] = {}
+    for fname in files:
+        tensors.update(read_safetensors(os.path.join(model_dir, fname)))
+    return tensors
+
+
+def params_from_hf(
+    tensors: Dict[str, torch.Tensor],
+    cfg: WhisperConfig,
+    dtype: torch.dtype = torch.bfloat16,
+    device: DeviceLike = "cpu",
+) -> Dict:
+    """Convert HF ``WhisperForConditionalGeneration`` tensors (torch Linear
+    layout: weight (out, in); on any device) into the stacked-layer tree, leaf for leaf the
+    JAX package's ``params_from_hf``: LayerNorm gains and biases and the
+    encoder's positions in f32, every other leaf in ``dtype``, conv weights
+    (k, in, out), Linear weights transposed, the ``model.`` prefix
+    stripped. Each tensor moves to ``device`` in the checkpoint's dtype and
+    is rounded there (to nearest even, through f32, as XLA's convert does),
+    so on the card large-v2's 1.55 B parameters never round on the host."""
+    device = torch.device(device)
+    t = {k.removeprefix("model."): v for k, v in tensors.items()}
+    f32 = torch.float32
+
+    def rounded(a, dt):
+        # f16 and bf16 widen to f32 exactly, then round once to dt
+        return a if a.dtype == dt else a.float().to(dt)
+
+    def leaf(name, dt=dtype):
+        return rounded(t[name].to(device), dt)
+
+    def stacked(fmt, n_layers, transpose=False, dt=dtype):
+        a = torch.stack([t[fmt.format(i)].to(device) for i in range(n_layers)])
+        a = rounded(a, dt)
+        return a.transpose(-1, -2).contiguous() if transpose else a
+
+    def blocks(prefix, n_layers, cross):
+        def s(sub, transpose=False, dt=dtype):
+            return stacked(prefix + ".layers.{}." + sub, n_layers, transpose, dt)
+
+        def attn(mod):
+            return {
+                "q_w": s(f"{mod}.q_proj.weight", transpose=True),
+                "q_b": s(f"{mod}.q_proj.bias"),
+                "k_w": s(f"{mod}.k_proj.weight", transpose=True),
+                "v_w": s(f"{mod}.v_proj.weight", transpose=True),
+                "v_b": s(f"{mod}.v_proj.bias"),
+                "o_w": s(f"{mod}.out_proj.weight", transpose=True),
+                "o_b": s(f"{mod}.out_proj.bias"),
+            }
+
+        def ln(mod):
+            return {"g": s(f"{mod}.weight", dt=f32), "b": s(f"{mod}.bias", dt=f32)}
+
+        out = {
+            "attn_ln": ln("self_attn_layer_norm"),
+            "attn": attn("self_attn"),
+            "mlp_ln": ln("final_layer_norm"),
+            "mlp": {
+                "w1": s("fc1.weight", transpose=True),
+                "b1": s("fc1.bias"),
+                "w2": s("fc2.weight", transpose=True),
+                "b2": s("fc2.bias"),
+            },
+        }
+        if cross:
+            out["cross_ln"] = ln("encoder_attn_layer_norm")
+            out["cross"] = attn("encoder_attn")
+        return out
+
+    def conv(name):
+        # torch conv1d weight (out, in, k) → (k, in, out)
+        return {"w": leaf(f"{name}.weight").permute(2, 1, 0).contiguous(),
+                "b": leaf(f"{name}.bias")}
+
+    return {
+        "encoder": {
+            "conv1": conv("encoder.conv1"),
+            "conv2": conv("encoder.conv2"),
+            "pos": leaf("encoder.embed_positions.weight", f32),
+            "blocks": blocks("encoder", cfg.n_audio_layer, cross=False),
+            "ln_post": {"g": leaf("encoder.layer_norm.weight", f32),
+                        "b": leaf("encoder.layer_norm.bias", f32)},
+        },
+        "decoder": {
+            "tok_emb": leaf("decoder.embed_tokens.weight"),
+            "pos": leaf("decoder.embed_positions.weight"),
+            "blocks": blocks("decoder", cfg.n_text_layer, cross=True),
+            "ln": {"g": leaf("decoder.layer_norm.weight", f32),
+                   "b": leaf("decoder.layer_norm.bias", f32)},
+        },
+    }
+
+
+def load_or_init_params(
+    cfg: WhisperConfig,
+    model_dir: Optional[str],
+    seed: int,
+    device: DeviceLike,
+    dtype: torch.dtype = torch.bfloat16,
+) -> Dict:
+    """Converted HF weights from ``model_dir`` if it holds a checkpoint
+    (the converted tree cached under ``<model_dir>/_converted_torch`` for
+    fast restarts), else seeded random weights with the exact shapes."""
+    device = torch.device(device)
+    if model_dir and os.path.isdir(model_dir):
+        from wis_tpu_torch.models.whisper.checkpoint import (
+            converted_path,
+            load_params,
+            save_params,
+        )
+
+        path = converted_path(model_dir, dtype)
+        cached = load_params(path, device)
+        if cached is not None:
+            return cached
+        tensors = _hf_tensors(model_dir)
+        if tensors:
+            logger.info("WHISPER: loading HF weights from %s", model_dir)
+            params = params_from_hf(tensors, cfg, dtype, device)
+            save_params(params, path)
+            return params
+    logger.warning(
+        "WHISPER: no weights found for %s (dir=%s) — using seeded random "
+        "init; transcripts will be meaningless but shapes/latency are exact",
+        cfg.name,
+        model_dir,
+    )
+    return random_params(cfg, seed, device, dtype)

@@ -94,6 +94,8 @@ def kernels() -> ctypes.CDLL:
             lib.wis_layer_norm.restype = i
             lib.wis_flash_attention_packed.argtypes = [p, p, p, p, i, i, i, i, f, p]
             lib.wis_flash_attention_packed.restype = i
+            lib.wis_flash_attention.argtypes = [p, p, p, p, i, i, i, i, f, p]
+            lib.wis_flash_attention.restype = i
             lib.wis_fused_decode_workspace_bytes.argtypes = [i, i]
             lib.wis_fused_decode_workspace_bytes.restype = ll
             lib.wis_fused_decode_step.argtypes = [p] * 11 + [i, p] + [i] * 8 + [p]

@@ -1,15 +1,19 @@
-"""Packed-layout flash attention for the encoder: the hand-written CUDA
-kernel (``csrc/flash_attention.cu``) and its plain PyTorch version.
+"""Flash attention for the encoder, in the JAX package's two layouts: the
+hand-written CUDA kernel (``csrc/flash_attention.cu``, one body for both)
+and its plain PyTorch version.
 
-Replaces the TPU kernel ``wis_tpu/ops/flash.py`` ``flash_attention_packed``.
-q, k, v and the result keep the packed (B, T, D) layout, heads side by
-side along D. The kernel is bound by the tensor cores' rate at the
-encoder's shapes; ``csrc/flash_attention.cu`` says how its design feeds
-them and keeps the T×T scores out of device memory.
+Replaces the TPU kernels ``wis_tpu/ops/flash.py`` ``flash_attention_packed``
+(q, k, v and the result packed (B, T, D), heads side by side along D) and
+``flash_attention`` (head-major (B, H, T, Dh)). Both compute unmasked
+softmax(q·kᵀ/√Dh)·v with f32 scores; keys at or past T never take part.
+The kernel is bound by the tensor cores' rate at the encoder's shapes;
+``csrc/flash_attention.cu`` says how its design feeds them and keeps the
+T×T scores out of device memory. The same numbers give bit-identical
+outputs in either layout.
 
-``flash_attention_packed`` launches the kernel for CUDA tensors and
-counts the launch in ``flash_attention_packed.launches``; it takes the
-plain version only for tensors on the CPU.
+``flash_attention_packed`` and ``flash_attention`` launch the kernel for
+CUDA tensors and count the launch in their ``.launches``; they take the
+plain versions only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -18,6 +22,9 @@ import torch
 
 from wis_tpu_torch.ops import _build
 from wis_tpu_torch.ops.attention import merge_heads, mha, qkv_heads
+
+#: widest head the kernel takes (its register tiles are sized per width)
+MAX_HEAD_DIM = 256
 
 
 def flash_attention_packed_plain(
@@ -28,6 +35,37 @@ def flash_attention_packed_plain(
     return merge_heads(
         mha(qkv_heads(q, n_heads), qkv_heads(k, n_heads), qkv_heads(v, n_heads))
     )
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> torch.Tensor:
+    """Unmasked softmax(q·kᵀ/√Dh)·v on head-major (B, H, T, Dh) tensors
+    (``mha``: f32 scores and softmax, the context in v's dtype)."""
+    return mha(q, k, v)
+
+
+def _check_operands(name: str, q, k, v) -> None:
+    for which, x in (("q", q), ("k", k), ("v", v)):
+        if x.shape != q.shape or x.dtype != torch.bfloat16 or x.device != q.device:
+            raise ValueError(
+                f"{name}: {which} must be bf16 {tuple(q.shape)} on {q.device}, "
+                f"got {x.dtype} {tuple(x.shape)} on {x.device}"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {which} must be contiguous")
+
+
+def _launch(name: str, fn, q, k, v, out, *dims) -> None:
+    for x in (q, k, v, out):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: pointers must be 16-byte aligned")
+    with torch.cuda.device(q.device):
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *dims,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(rc, name)
 
 
 def flash_attention_packed(
@@ -48,30 +86,41 @@ def flash_attention_packed(
             f"flash_attention_packed: D={d} over {n_heads} heads is not "
             "head_dim 64 or 128"
         )
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.shape != q.shape or x.dtype != torch.bfloat16 or x.device != q.device:
-            raise ValueError(
-                f"flash_attention_packed: {name} must be bf16 {tuple(q.shape)} "
-                f"on {q.device}, got {x.dtype} {tuple(x.shape)} on {x.device}"
-            )
-        if not x.is_contiguous():
-            raise ValueError(f"flash_attention_packed: {name} must be contiguous")
+    _check_operands("flash_attention_packed", q, k, v)
     out = torch.empty_like(q)
     if b == 0 or t == 0:
         return out
-    for x in (q, k, v, out):
-        if x.data_ptr() % 16:
-            raise ValueError("flash_attention_packed: pointers must be 16-byte aligned")
-    lib = _build.kernels()
-    with torch.cuda.device(q.device):
-        rc = lib.wis_flash_attention_packed(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, t, d, n_heads, float((d // n_heads) ** -0.5),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(rc, "flash_attention_packed")
+    _launch("flash_attention_packed", _build.kernels().wis_flash_attention_packed,
+            q, k, v, out, b, t, d, n_heads, float((d // n_heads) ** -0.5))
     flash_attention_packed.launches += 1
     return out
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Unmasked attention on head-major (B, H, T, Dh) q/k/v; output
+    head-major. CUDA tensors run the kernel (bf16, contiguous, Dh a
+    multiple of 8 up to ``MAX_HEAD_DIM``); CPU tensors run
+    ``flash_attention_plain``."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.dim() != 4:
+        raise ValueError(f"flash_attention: want (B, H, T, Dh), got {tuple(q.shape)}")
+    b, h, t, dh = q.shape
+    if dh % 8 or not 0 < dh <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention: head_dim {dh} is not a multiple of 8 up to {MAX_HEAD_DIM}"
+        )
+    _check_operands("flash_attention", q, k, v)
+    out = torch.empty_like(q)
+    if b == 0 or h == 0 or t == 0:
+        return out
+    _launch("flash_attention", _build.kernels().wis_flash_attention,
+            q, k, v, out, b, h, t, dh, float(dh ** -0.5))
+    flash_attention.launches += 1
+    return out
+
+
 flash_attention_packed.launches = 0
+flash_attention.launches = 0

@@ -3,17 +3,21 @@
 Loads a whisper size lazily onto one explicit device: the config, the
 weights, int8 quantization when ``settings.quant`` is int8 (decoder
 matmul weights plus ``tok_emb_q``, ``ops/quant.py``), and the tokenizer.
+A load that would take the resident parameters past
+``settings.hbm_budget_bytes`` (with the JAX package's headroom for
+activations and caches) is refused with ``MemoryError``, as in the JAX
+package.
 
 Weights come from one of two sources:
 - a bridged tree (``jax_trees[size]``): numpy arrays in the JAX package's
   layout, served exactly as given — quantize before bridging if the tree
   should be int8 (the JAX registry's loaded trees already are);
-- otherwise seeded random weights made on the device. The seed is a
-  stable CRC of the size name. (The JAX registry seeds with
-  ``hash(size)``, which Python salts per process; the port does not
-  reproduce that.)
-
-Real checkpoints (HF safetensors) are not read by the port yet.
+- otherwise ``load_or_init_params`` on the size's model directory: an HF
+  checkpoint there (``*.safetensors``) is converted on the device and
+  cached under ``_converted_torch``; without one, seeded random weights
+  are made on the device. The seed is a stable CRC of the size name. (The
+  JAX registry seeds with ``hash(size)``, which Python salts per process;
+  the port does not reproduce that.)
 """
 
 from __future__ import annotations
@@ -34,11 +38,15 @@ from wis_tpu_torch.models.whisper.config import (
     resolve_model_name,
 )
 from wis_tpu_torch.models.whisper.tokenizer import WhisperTokenizer, layout_for_vocab
-from wis_tpu_torch.models.whisper.weights import params_from_jax, random_params
+from wis_tpu_torch.models.whisper.weights import load_or_init_params, params_from_jax
 from wis_tpu_torch.ops.fused_decode import PackedDecoder
 from wis_tpu_torch.settings import APISettings
 
 logger = logging.getLogger("wis_tpu_torch")
+
+#: activation + KV-cache headroom reserved out of the device-memory budget
+#: (the JAX package's ``_HEADROOM_BYTES``)
+_HEADROOM_BYTES = 4 * 1024**3
 
 
 def stable_seed(size: str) -> int:
@@ -116,20 +124,33 @@ class ModelRegistry:
     def resident_bytes(self) -> int:
         return sum(m.param_bytes for m in self._models.values())
 
+    def would_fit(self, cfg: WhisperConfig) -> bool:
+        need = cfg.hbm_bytes(2 if self.dtype == torch.bfloat16 else 4)
+        return (
+            self.resident_bytes() + need + _HEADROOM_BYTES
+            <= self.settings.hbm_budget_bytes
+        )
+
     def get(self, name: str) -> LoadedModel:
         size = resolve_model_name(name)
         with self._lock:
             if size in self._models:
                 return self._models[size]
             cfg = WHISPER_CONFIGS[size]
+            if not self.would_fit(cfg):
+                raise MemoryError(
+                    f"Loading whisper-{size} would exceed the HBM budget "
+                    f"({self.resident_bytes()/2**30:.1f} GiB resident, "
+                    f"budget {self.settings.hbm_budget_bytes/2**30:.1f} GiB)"
+                )
             if size in self.jax_trees:
                 logger.info("REGISTRY: bridging whisper %s onto %s", size, self.device)
                 params = params_from_jax(self.jax_trees[size], self.device)
             else:
-                logger.info(
-                    "REGISTRY: seeded random whisper %s on %s", size, self.device
+                logger.info("REGISTRY: loading whisper %s onto %s", size, self.device)
+                params = load_or_init_params(
+                    cfg, self._model_dir(size), stable_seed(size), self.device, self.dtype
                 )
-                params = random_params(cfg, stable_seed(size), self.device, self.dtype)
                 if self.settings.quant in ("int8", "int4"):
                     from wis_tpu_torch.ops.quant import quantize_whisper_params
 

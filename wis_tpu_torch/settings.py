@@ -71,9 +71,15 @@ class APISettings:
     audio_second_buckets: List[str] = field(
         default_factory=lambda: ["4", "8", "16", "30"]
     )
-    #: directory holding model assets (tokenizer files); weights without a
-    #: bridged tree are seeded random
+    #: directory holding one subdirectory per model size (``<size>``,
+    #: ``whisper-<size>`` or ``tovera-wis-whisper-<size>``): an HF checkpoint
+    #: (``*.safetensors``) and tokenizer files; a size without a checkpoint
+    #: gets seeded random weights
     model_dir: str = "models"
+    #: device-memory budget in bytes that resident model parameters, plus a
+    #: fixed headroom for activations and caches, must fit (the JAX
+    #: package's default)
+    hbm_budget_bytes: int = 16 * 1024**3
     warmup_iterations: int = 1
     #: max cached ASR programs per engine
     compile_cache_max: int = 32
