@@ -3,7 +3,12 @@
 
 Run from the repository root, with one card visible:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent <another checkout>]
+
+With ``--parent`` (an unpacked archive of the parent commit's files, say)
+phase 3 also builds that checkout's kernels and times its ``int8_matmul``
+and flash kernels beside this tree's on the same inputs, in turns parent /
+change / change / parent.
 
 Phases, each printed on its own lines; any failure raises and the script
 exits non-zero without printing a result:
@@ -12,13 +17,17 @@ exits non-zero without printing a result:
    (``nvidia-smi --query-gpu=name,power.limit``);
 2. build the hand-written kernels from ``wis_tpu_torch/csrc`` (one nvcc per
    source, in parallel, into ``build/wis_tpu_torch/``) and print the build
-   seconds;
+   seconds and, from ``-Xptxas -v``, the registers and spills of the
+   ``int8_matmul`` and Hopper flash kernels;
 3. hold each encoder kernel against its plain PyTorch version on the card,
    in bf16, at the encoder's shapes (flash also on inputs that expose an
    unmasked ragged key tile; the head-major flash kernel also at head
    widths 32, 80 and 72, and bit-identical to the packed one at 64 and
-   128), and time kernel, plain version and the PyTorch library call that
-   computes the same function; the same for
+   128; the packed kernel on a batch of two whose second batch's first
+   values are Inf, batch 0 finite and equal to its plain version; one
+   and two consumer warpgroups per block timed), and time kernel, plain
+   version and the PyTorch library call that computes the same function;
+   the same for
    ``int8_matmul`` (the cross-KV products of one and four windows, a
    decode step's MLP products at 5 and 15 rows, the XTTS prefill; the
    library call ``torch.mm`` on a bf16-dequantized weight) and
@@ -65,7 +74,12 @@ exits non-zero without printing a result:
    three ways — the default path (fused step, eager epilogue), the fused
    head, and the eager ``gpt_pass`` path for its first three chunks — each
    with the counters set to 0 just before and read just after; time the
-   per-token sampling epilogue both ways.
+   per-token sampling epilogue both ways;
+9. write a seeded full-width Coqui XTTS v2 ``model.pth`` under ``build/``,
+   serve it from an ``XTTSModel`` whose model_dir holds it (every GPT and
+   vocoder leaf equal to the state dict's conversion, three chunks
+   streamed that differ from the seeded model's), print the load seconds,
+   delete it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -294,10 +308,57 @@ def check_flash(torch, dev):
             print(f"{case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"scaled_dot_product_attention {library_ms:.4f} ms, "
                   f"bound {bound_ms:.4f} ms ({bound_by})")
+            # wave quantization: one or two consumer warpgroups per block,
+            # asked of the C function (the wrapper leaves it to the kernel)
+            lib, out = _build_lib(), torch.empty_like(q)
+
+            def with_wgs(w):
+                rc = lib.wis_flash_attention_packed(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, 1500, 1280,
+                    heads, float((1280 // heads) ** -0.5), w,
+                    torch.cuda.current_stream(dev).cuda_stream)
+                if rc:
+                    raise AssertionError(f"flash with {w} warpgroups: cudaError {rc}")
+
+            by_wgs = {w: _median_ms(lambda w=w: with_wgs(w)) for w in (1, 2)}
+            blocks = {w: -(-1500 // (64 * w)) * heads for w in (1, 2)}
+            print(f"{case}: one warpgroup per block {by_wgs[1]:.4f} ms ({blocks[1]} blocks), "
+                  f"two {by_wgs[2]:.4f} ms ({blocks[2]} blocks), the kernel's choice {ms:.4f} ms "
+                  f"({torch.cuda.get_device_properties(dev).multi_processor_count} SMs)")
             if heads == 20:
                 times = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=library_ms)
+        rows.append(check_cross_batch_trap(torch, dev, heads))
     return dict(max_abs_err=max(rows), **times)
+
+
+def cross_batch_inputs(torch, dev, heads, seed, t=1500, d=1280):
+    """Packed (2, t, d) bf16 q, k, v with Inf in the values of batch 1's
+    first 64 rows: the rows a kernel would read, past batch 0's last key,
+    if its ragged last key tile ran on into the next batch (0 × Inf is NaN)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((2, t, d), dtype=np.float32) for _ in range(3))
+    v[1, :64] = np.inf
+    return tuple(torch.from_numpy(x).to(dev, torch.bfloat16) for x in (q, k, v))
+
+
+def check_cross_batch_trap(torch, dev, heads):
+    """flash_attention_packed on cross_batch_inputs: batch 0 must be finite
+    and agree with its plain version (the packed rule's tolerances)."""
+    from wis_tpu_torch.ops.flash import flash_attention_packed, flash_attention_packed_plain
+
+    q, k, v = cross_batch_inputs(torch, dev, heads, seed=40 + heads)
+    got = flash_attention_packed(q, k, v, heads)[:1]
+    ref = flash_attention_packed_plain(q[:1], k[:1], v[:1], heads)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(got).all())
+    bad, err, rel = flash_disagreement(got, ref)
+    case = f"flash_attention_packed (2,1500,1280) H={heads} cross-batch trap"
+    print(f"{case}: batch 0 finite {finite}, max|Δ| {err:.3e}, ‖Δ‖/‖plain‖ {rel:.3e}, "
+          f"{bad} elements over")
+    if not finite or bad or not rel <= FLASH_REL_NORM:
+        raise AssertionError(f"{case}: batch 0 read batch 1's rows or disagrees with plain")
+    return err
 
 
 #: head-major flash cases (B, H, T, Dh): large-v2's encoder and the other
@@ -630,6 +691,159 @@ def check_int8_matmul(torch, dev):
         rows[(m, k, n)] = dict(max_abs_err=float(d.max()), ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
     return rows
+
+
+def _parent_library(parent):
+    """The kernel library of another checkout of this repo (its own
+    ``_build``, so its own sources, built into its own ``build/``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_wis_build", os.path.join(parent, "wis_tpu_torch", "ops", "_build.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    lib = mod.kernels()
+    print(f"parent kernels from {parent} built/loaded in {time.perf_counter() - t0:.2f} s")
+    return lib, mod.check
+
+
+def compare_with_parent(torch, dev, parent):
+    """Rows 6, 2 and 3 against the parent checkout's kernels on the same
+    inputs, timed in turns parent / change / change / parent at every
+    int8_matmul shape and every packed and head-major flash shape; each
+    side's output held to its plain version first. Returns {shape: times}."""
+    from wis_tpu_torch.ops.flash import (
+        flash_attention,
+        flash_attention_packed,
+        flash_attention_packed_plain,
+        flash_attention_plain,
+    )
+    from wis_tpu_torch.ops.quant import int8_matmul, int8_matmul_plain, quantize_weight
+
+    lib, check = _parent_library(parent)
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+
+    def turns(name, parent_fn, change_fn, want):
+        for label, fn in (("parent", parent_fn), ("change", change_fn)):
+            got = fn()
+            torch.cuda.synchronize()
+            r = want.float()
+            d = (got.float() - r).abs()
+            bad = int((d > 2 * _bf16_ulp(r) + 2.0 ** -8 * float(r.abs().max())).sum())
+            if bad or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{name}: the {label} kernel disagrees with plain")
+        t = [_median_ms(f) for f in (parent_fn, change_fn, change_fn, parent_fn)]
+        slower = min(t[1], t[2]) / min(t[0], t[3]) - 1
+        print(f"{name}: parent {t[0]:.4f}, change {t[1]:.4f}, change {t[2]:.4f}, parent "
+              f"{t[3]:.4f} ms; change/parent {min(t[1], t[2]) / min(t[0], t[3]):.3f}"
+              + (" — SLOWER than the parent by more than 5%" if slower > 0.05 else ""))
+        out[name] = t
+
+    for m, k, n in INT8_SHAPES:
+        rng = np.random.default_rng(m + k + n)
+        x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(dev, torch.bfloat16)
+        leaf = quantize_weight(torch.from_numpy(
+            rng.standard_normal((k, n), dtype=np.float32) * 0.05).to(dev))
+        q, sc = leaf["q"], leaf["s"]
+        splits = lib.wis_int8_matmul_splits(m, k, n, sms)
+        part = torch.empty(max(splits, 1) * m * n, dtype=torch.float32, device=dev)
+        y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+        # a parent with split counters (12 arguments) takes them after part
+        sem = (torch.zeros(lib.wis_int8_matmul_counters(n), dtype=torch.int32, device=dev)
+               if len(lib.wis_int8_matmul.argtypes) == 12 else None)
+
+        def parent_fn(x=x, q=q, sc=sc, y=y, part=part, sem=sem, splits=splits, m=m, k=k, n=n):
+            ptrs = (part.data_ptr(),) + (() if sem is None else (sem.data_ptr(),))
+            check(lib.wis_int8_matmul(x.data_ptr(), q.data_ptr(), sc.data_ptr(), y.data_ptr(),
+                                      *ptrs, m, k, n, splits, 0, stream()), "parent int8_matmul")
+            return y
+
+        turns(f"int8_matmul M={m} K={k} N={n}", parent_fn,
+              lambda x=x, q=q, sc=sc: int8_matmul(x, q, sc), int8_matmul_plain(x, q, sc))
+        if (m, k, n) == (5, 1280, 5120):
+            # host time per call: this tree's C call encodes two tensor maps
+            # before it launches, the parent's launches at once
+            mine = _build_lib()
+            msplits = mine.wis_int8_matmul_splits(m, k, n, sms)
+            mpart = torch.empty(msplits * m * n, dtype=torch.float32, device=dev)
+            msem = torch.zeros(mine.wis_int8_matmul_counters(n), dtype=torch.int32, device=dev)
+
+            def bare():
+                return mine.wis_int8_matmul(x.data_ptr(), q.data_ptr(), sc.data_ptr(),
+                                            y.data_ptr(), mpart.data_ptr(), msem.data_ptr(),
+                                            m, k, n, msplits, 0, stream())
+
+            host = {name: _host_us(torch, fn) for name, fn in (
+                ("parent C call", parent_fn), ("C call", bare),
+                ("int8_matmul wrapper", lambda: int8_matmul(x, q, sc)))}
+            print("int8_matmul M=5 K=1280 N=5120 host time per call: " + ", ".join(
+                f"{name} {us:.2f} µs" for name, us in host.items()))
+
+    def parent_flash(fn, q, k, v, o, *dims):
+        # the parent's C functions may predate the warpgroups argument
+        extra = (0,) if len(fn.argtypes) == 11 else ()
+        check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *dims, *extra,
+                 stream()), "parent flash")
+        return o
+
+    for heads in (20, 10):
+        q, k, v = _flash_inputs(torch, dev, heads, False, 2 + heads)
+        o = torch.empty_like(q)
+        turns(f"flash_attention_packed (1,1500,1280) H={heads}",
+              lambda q=q, k=k, v=v, o=o, h=heads: parent_flash(
+                  lib.wis_flash_attention_packed, q, k, v, o, 1, 1500, 1280, h,
+                  float((1280 // h) ** -0.5)),
+              lambda q=q, k=k, v=v, h=heads: flash_attention_packed(q, k, v, h),
+              flash_attention_packed_plain(q, k, v, heads))
+    for b, h, t, dh in HEAD_MAJOR_CASES:
+        q, k, v = _head_major_inputs(torch, dev, b, h, t, dh, False, seed=h + dh)
+        o = torch.empty_like(q)
+        turns(f"flash_attention ({b},{h},{t},{dh})",
+              lambda q=q, k=k, v=v, o=o, b=b, h=h, t=t, dh=dh: parent_flash(
+                  lib.wis_flash_attention, q, k, v, o, b, h, t, dh, float(dh ** -0.5)),
+              lambda q=q, k=k, v=v: flash_attention(q, k, v), flash_attention_plain(q, k, v))
+    return out
+
+
+def _build_lib():
+    from wis_tpu_torch.ops import _build
+
+    return _build.kernels()
+
+
+def _host_us(torch, fn, calls=200):
+    """Host microseconds per fn() call: `calls` calls queued behind a spin
+    kernel of ~50 ms, so the card is never what the host waits for; the
+    median of five rounds."""
+    fn()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(5):
+        torch.cuda._sleep(100_000_000)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        rounds.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(rounds)
+
+
+def print_ptxas(names=("int8_matmul_kernel", "flash_wgmma_kernel")):
+    """Registers, shared memory and spills of the kernels named, from the
+    build's -Xptxas -v output."""
+    from wis_tpu_torch.ops import _build
+
+    for log in sorted(_build.library_path().parent.glob("*.ptxas.txt")):
+        fn = None
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1) if any(n in m.group(1) for n in names) else None
+            elif fn and ("spill" in line or "Used" in line):
+                print(f"ptxas {fn}: {line.strip()}")
 
 
 #: ancestry_attention cases (BK, T, pos): one window's beams and four
@@ -1101,7 +1315,7 @@ def time_xtts_epilogue(torch, dev, model):
     return eager_ms, fused_ms
 
 
-def stream_xtts(torch, dev, model, counters, path, max_chunks=None):
+def stream_xtts(torch, dev, model, counters, path, max_chunks=None, chunks_out=None):
     """TTS_TEXT through ``model.inference_stream`` (zero voice, default
     knobs, the token floor) with every counter set to 0 just before; →
     (the counts just after, (second chunk, worst slack, total) in ms).
@@ -1110,7 +1324,7 @@ def stream_xtts(torch, dev, model, counters, path, max_chunks=None):
     arrives, chunk i is due when the audio before it has played, and the
     slack is due minus arrival (negative: the listener hears a gap).
     Checks the audio: finite, in [-1, 1], and for a whole stream exactly
-    the cap's samples."""
+    the cap's samples. ``chunks_out``, a list, receives the chunks."""
     cfg = model.cfg
     voc, cap = cfg.vocoder, cfg.gpt.max_audio_tokens
     voice = np.zeros((cfg.cond_len, cfg.gpt.d_model), np.float32)
@@ -1131,6 +1345,8 @@ def stream_xtts(torch, dev, model, counters, path, max_chunks=None):
     stream.close()
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
+    if chunks_out is not None:
+        chunks_out.extend(chunks)
     counts = [c.launches for c in counters]
     wav = np.concatenate(chunks)
     tokens = round(len(wav) * voc.input_sample_rate / (voc.gpt_code_stride * voc.sample_rate))
@@ -1593,7 +1809,85 @@ def check_checkpoint_round_trip(torch, dev, settings):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def check_xtts_checkpoint(torch, dev, seeded_chunks, counters):
+    """A seeded Coqui XTTS v2 ``model.pth`` at full width (30 layers,
+    D = 1024, weight-normed HiFi-GAN) written under build/, served by an
+    ``XTTSModel`` whose model_dir holds it: every GPT and vocoder leaf on
+    the device equal to the state dict's host conversion (the int8 leaves
+    to its quantization on the device, as the model quantizes; the token
+    embedding and the head also to the state dict's own values rounded to
+    bf16), and three chunks streamed that differ from the seeded model's."""
+    from wis_tpu_torch.models.xtts.convert import gpt_from_coqui, hifigan_from_coqui
+    from wis_tpu_torch.models.xtts.model import XTTSConfig, XTTSModel
+    from wis_tpu_torch.ops.quant import is_quantized, quantize_weight
+    from wis_tpu_torch.utils.selftest import synthetic_coqui_sd
+
+    cfg = XTTSConfig()
+    root = os.path.join(REPO, "build", "xtts_checkpoint_smoke")
+    os.makedirs(root, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        sd = synthetic_coqui_sd(cfg.gpt, cfg.vocoder, seed=1234)
+        t_make = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        torch.save({"model": sd}, os.path.join(root, "model.pth"))
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(root, "model.pth"))
+        t0 = time.perf_counter()
+        model = XTTSModel(dev, model_dir=root)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        print(f"xtts checkpoint: {len(sd)} tensors, {size / 1e9:.3f} GB f32 made in {t_make:.2f} s, "
+              f"written under build/ in {t_write:.2f} s; XTTSModel(model_dir=...) loaded, "
+              f"converted, quantized and packed it in {t_load:.2f} s")
+
+        def leaves(tree, path=""):
+            if isinstance(tree, dict) and not is_quantized(tree):
+                for k, v in tree.items():
+                    yield from leaves(v, f"{path}/{k}")
+            elif isinstance(tree, (list, tuple)):
+                for i, v in enumerate(tree):
+                    yield from leaves(v, f"{path}/{i}")
+            else:
+                yield path, tree
+
+        want = dict(leaves(gpt_from_coqui(sd, cfg.gpt, torch.bfloat16, "cpu"), "gpt"))
+        want.update(leaves(hifigan_from_coqui(sd, cfg.vocoder, torch.bfloat16, "cpu"), "vocoder"))
+        got = dict(leaves(model.gpt_params, "gpt"))
+        got.update(leaves(model.vocoder_params, "vocoder"))
+        equal = 0
+        for name, leaf in got.items():
+            if is_quantized(leaf):
+                ref = quantize_weight(want[name].to(dev))
+                equal += torch.equal(leaf["q"], ref["q"]) and torch.equal(leaf["s"], ref["s"])
+            else:
+                equal += leaf.device == dev and torch.equal(leaf.cpu(), want[name])
+        own = (torch.equal(model.gpt_params["text_emb"].cpu(),
+                           sd["gpt.text_embedding.weight"].bfloat16())
+               and torch.equal(model.gpt_params["head_w"].cpu(),
+                               sd["gpt.mel_head.weight"].t().bfloat16()))
+        chunks = []
+        stream_xtts(torch, dev, model, counters, "checkpoint (first 3 chunks)", max_chunks=3,
+                    chunks_out=chunks)
+        differs = any(a.shape != b.shape or not np.array_equal(a, b)
+                      for a, b in zip(chunks, seeded_chunks))
+        print(f"xtts checkpoint: {equal} of {len(got)} leaves equal to the state dict's "
+              f"conversion (set {len(want)}); token embedding and head equal to the state "
+              f"dict's values: {own}; stream differs from the seeded weights': {differs}")
+        if not (equal == len(got) == len(want) and own and differs):
+            raise AssertionError("xtts checkpoint: the model does not serve the checkpoint")
+        del model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="another checkout of this repo (the parent commit's "
+                    "files): time its int8_matmul and flash kernels beside this tree's")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -1629,11 +1923,14 @@ def main() -> int:
     _build.kernels()
     print(f"kernels built/loaded from {_build.library_path()} in "
           f"{time.perf_counter() - t0:.2f} s")
+    print_ptxas()
 
     ln = check_layer_norm(torch, dev)
     fl = check_flash(torch, dev)
     hm = check_head_major_flash(torch, dev)
     i8 = check_int8_matmul(torch, dev)
+    if args.parent:
+        compare_with_parent(torch, dev, args.parent)
     anc = check_ancestry_attention(torch, dev)
 
     settings = APISettings(
@@ -1677,8 +1974,10 @@ def main() -> int:
     time_xtts_epilogue(torch, dev, xtts)
     tts_counters = (fused_gpt_step, fused_gpt_head)
     stream_xtts(torch, dev, xtts, tts_counters, "warm-up", max_chunks=2)
+    seeded_chunks = []
     step_n = stream_xtts(torch, dev, xtts, tts_counters,
-                         f"default (fused step, pipeline_depth={xtts.pipeline_depth})")[0]
+                         f"default (fused step, pipeline_depth={xtts.pipeline_depth})",
+                         chunks_out=seeded_chunks)[0]
     if not (step_n[0] == xtts.cfg.gpt.max_audio_tokens and step_n[1] == 0):
         raise AssertionError(f"default stream ran {step_n[0]} steps / {step_n[1]} heads")
     compare_pipeline_depths(torch, dev, xtts, tts_counters)
@@ -1694,6 +1993,7 @@ def main() -> int:
     if any(eager_n):
         raise AssertionError(f"the eager stream launched fused kernels: {eager_n}")
     del eager
+    check_xtts_checkpoint(torch, dev, seeded_chunks[:3], tts_counters)
 
     rows = [
         dict(name="layer_norm", source="wis_tpu_torch/csrc/layernorm.cu",

@@ -249,6 +249,52 @@ def test_head_major_flash_bit_identical_to_packed(dev, heads, dh):
     assert torch.equal(head_major, packed)
 
 
+@pytest.mark.parametrize("batch", [1, 9])
+@pytest.mark.parametrize("layout", ["packed", "head-major"])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("t", [512, 513, 1499, 1500])
+def test_hopper_flash_edges(dev, t, dh, layout, batch):
+    """The Hopper body at key counts on and off its 64-key tiles and query
+    counts on and off its 64- and 128-row blocks, in both layouts, with
+    one consumer warpgroup per block (one batch of 4 heads: too few
+    blocks for two) and two (nine batches): the attention tolerances,
+    and the head-major output bit-identical to the packed one."""
+    from wis_tpu_torch.ops.attention import merge_heads
+    from wis_tpu_torch.ops.flash import (
+        flash_attention,
+        flash_attention_packed,
+        flash_attention_plain,
+    )
+
+    q, k, v = _head_major_inputs(dev, batch, 4, t, dh, False, seed=t + dh)
+    want = flash_attention_plain(q, k, v)
+    packed = flash_attention_packed(*(merge_heads(x) for x in (q, k, v)), 4)
+    if layout == "packed":
+        got = packed.view(batch, t, 4, dh).transpose(1, 2)
+    else:
+        got = flash_attention(q, k, v)
+        assert torch.equal(merge_heads(got), packed)
+    torch.cuda.synchronize()
+    _assert_attention_close(got, want)
+
+
+@pytest.mark.parametrize("t", [513, 1499, 1500])
+@pytest.mark.parametrize("heads", [20, 10])
+def test_packed_flash_cross_batch_trap(dev, heads, t):
+    """B = 2 with Inf in the values of batch 1's first 64 rows: batch 0's
+    ragged last key tile must stop at its own batch (0 × Inf is NaN), so
+    batch 0 stays finite and equal to its plain version."""
+    import chip_smoke
+    from wis_tpu_torch.ops.flash import flash_attention_packed, flash_attention_packed_plain
+
+    q, k, v = chip_smoke.cross_batch_inputs(torch, dev, heads, seed=heads, t=t)
+    got = flash_attention_packed(q, k, v, heads)[:1]
+    want = flash_attention_packed_plain(q[:1], k[:1], v[:1], heads)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _assert_attention_close(got, want)
+
+
 def test_head_major_flash_refuses_what_the_kernel_does_not_take(dev):
     from wis_tpu_torch.ops.flash import flash_attention
 
@@ -745,6 +791,32 @@ def test_int8_matmul_matches_plain(dev, m, k, n):
     torch.cuda.synchronize()
     assert int8_matmul.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    r = want.float()
+    over = (got.float() - r).abs() > 2 * _bf16_ulp(r) + 2.0 ** -8 * float(r.abs().max())
+    assert not bool(over.any()), f"{int(over.sum())} elements beyond tolerance"
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [128, 384, 1280, 5120])
+@pytest.mark.parametrize("m", [1, 5, 63, 64, 65, 127, 129, 289, 1500, 6000])
+def test_int8_matmul_edges(dev, m, k, out):
+    """Row counts about the 64-row (one consumer warpgroup, split K) and
+    128-row tiles, K of 2, 6, 20 and 80 ring steps of 64 (fewer steps than
+    stages, an odd count, many), a last column tile half full (N % 128 ==
+    64), and both output types (bf16 for bf16 x; f32 x rounds to bf16 and
+    the kernel stores f32): the tolerance of test_int8_matmul_matches_plain."""
+    from wis_tpu_torch.ops.quant import int8_matmul, int8_matmul_plain, quantize_weight
+
+    n = 1344
+    rng = np.random.default_rng(m * k)
+    x = _randn(rng, (m, k), dev, out)
+    leaf = quantize_weight(_randn(rng, (k, n), dev, torch.float32, scale=0.05))
+    before = int8_matmul.launches
+    got = int8_matmul(x, leaf["q"], leaf["s"])
+    want = int8_matmul_plain(x, leaf["q"], leaf["s"])
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    assert got.dtype == out and got.shape == (m, n)
     r = want.float()
     over = (got.float() - r).abs() > 2 * _bf16_ulp(r) + 2.0 ** -8 * float(r.abs().max())
     assert not bool(over.any()), f"{int(over.sum())} elements beyond tolerance"

@@ -39,9 +39,13 @@ plain versions —, "off" the eager ``gpt_pass`` path), ``fused_head``
 seeded per call, so they differ from ``jax.random``'s; greedy decoding is
 the same.
 
+Weights: ``<model_dir>/model.pth``, a Coqui XTTS v2 checkpoint, converted
+by ``convert.py`` as the JAX package converts it; without one, or where it
+does not convert, seeded random weights (the JAX package's rule).
+
 Not ported: ``clone_speaker`` (the conditioning encoder and the WavLM
-x-vector come with the speaker-verification slice), Coqui checkpoint
-conversion (weights are seeded random), and the XLA compile cache.
+x-vector come with the speaker-verification slice) and the XLA compile
+cache.
 """
 
 from __future__ import annotations
@@ -140,10 +144,14 @@ class XTTSModel:
         self.fused_head = bool(fused_head)
         self.pipeline_depth = max(1, int(pipeline_depth))
         self._tokenizer = self._load_tokenizer(model_dir)
-        logger.info("XTTS: seeded random weights (seed %d) on %s", seed, self.device)
-        self.gpt_params = random_gpt(self.cfg.gpt, seed=seed, dtype=dtype, device=self.device)
-        self.vocoder_params = random_hifigan(self.cfg.vocoder, seed=seed + 1, dtype=dtype,
-                                             device=self.device)
+        # weights: the converted Coqui checkpoint if there is one, else seeded
+        self.gpt_params, self.vocoder_params = self._load_checkpoint(model_dir)
+        if self.gpt_params is None:
+            logger.info("XTTS: seeded random weights (seed %d) on %s", seed, self.device)
+            self.gpt_params = random_gpt(self.cfg.gpt, seed=seed, dtype=dtype,
+                                         device=self.device)
+            self.vocoder_params = random_hifigan(self.cfg.vocoder, seed=seed + 1, dtype=dtype,
+                                                 device=self.device)
         if quant == "int8":
             # the chunked decode streams the whole block stack per audio
             # token: int8 halves its bytes (the JAX package's default)
@@ -163,6 +171,31 @@ class XTTSModel:
             self.gpt_head_packed = pack_head(self.gpt_params, self.cfg.gpt, dtype)
 
     # ------------------------------------------------------------------ #
+    def _load_checkpoint(self, model_dir):
+        """(GPT tree, vocoder tree) converted from ``<model_dir>/model.pth``,
+        or (None, None) where there is none or it does not convert (logged,
+        as the JAX package does; a half-converted pair is never kept)."""
+        ckpt = os.path.join(model_dir or "", "model.pth")
+        if not (model_dir and os.path.isfile(ckpt)):
+            return None, None
+        from wis_tpu_torch.models.xtts.convert import (
+            gpt_from_coqui,
+            hifigan_from_coqui,
+            load_coqui_checkpoint,
+        )
+
+        sd = load_coqui_checkpoint(ckpt)
+        if not sd:
+            return None, None
+        try:
+            gpt = gpt_from_coqui(sd, self.cfg.gpt, self.dtype, self.device)
+            vocoder = hifigan_from_coqui(sd, self.cfg.vocoder, self.dtype, self.device)
+        except (KeyError, ValueError) as e:
+            logger.warning("XTTS: checkpoint conversion failed: %s", e)
+            return None, None
+        logger.info("XTTS: loaded Coqui checkpoint %s", ckpt)
+        return gpt, vocoder
+
     @staticmethod
     def _load_tokenizer(model_dir):
         path = os.path.join(model_dir or "", "tokenizer.json")
@@ -203,9 +236,9 @@ class XTTSModel:
 
     def clone_speaker(self, audio_16k: np.ndarray):
         raise NotImplementedError(
-            "clone_speaker needs the XTTS conditioning encoder and the WavLM x-vector, "
-            "which the port gains with its speaker-verification slice; pass "
-            "gpt_cond_latent and speaker_embedding (a saved voice) instead"
+            "clone_speaker needs the XTTS conditioning encoder (its checkpoint "
+            "conversion included) and the WavLM x-vector, which the port does not "
+            "have yet; pass gpt_cond_latent and speaker_embedding (a saved voice) instead"
         )
 
     # ------------------------------------------------------------------ #

@@ -6,7 +6,11 @@ interface, loaded with ctypes. The build runs at first use, on the
 machine with the card, into ``build/wis_tpu_torch/<hash>/`` beside the
 package (listed in ``.gitignore``), keyed by a hash of the sources, the
 headers they share (``csrc/*.cuh``) and the flags, so a changed source
-rebuilds and an unchanged one is reused.
+rebuilds and an unchanged one is reused. Each source's compiler output
+(``-Xptxas -v``: registers, shared memory and spills per kernel) is kept
+beside the library as ``<source>.ptxas.txt``. The TMA kernels take
+``cuTensorMapEncodeTiled`` from the CUDA driver through the runtime
+(``cudaGetDriverEntryPoint``), so nothing links against ``libcuda``.
 Nothing is built or imported when a module is imported.
 """
 
@@ -24,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "wis_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lock = threading.Lock()
@@ -47,16 +51,18 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / "libwis_kernels.so"
 
 
-def _run(procs) -> None:
+def _run(procs) -> list:
     """Wait for every (command, Popen); raise with the first failure's
-    output."""
-    failed = None
+    output, else return each one's stdout + stderr."""
+    failed, logs = None, []
     for cmd, proc in procs:
         stdout, stderr = proc.communicate()
+        logs.append(stdout + stderr)
         if proc.returncode != 0 and failed is None:
             failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stdout}\n{stderr}"
     if failed:
         raise RuntimeError(failed)
+    return logs
 
 
 def _compile(out: Path) -> None:
@@ -70,7 +76,8 @@ def _compile(out: Path) -> None:
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
             objs.append(obj)
-        _run(procs)
+        for src, log in zip(_sources(), _run(procs)):
+            (out.parent / f"{src.stem}.ptxas.txt").write_text(log)
         lib = os.path.join(tmpdir, "lib.so")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-shared", "-o", lib, *objs]
         _run([(cmd, subprocess.Popen(
@@ -92,9 +99,9 @@ def kernels() -> ctypes.CDLL:
             ll = ctypes.c_longlong
             lib.wis_layer_norm.argtypes = [p, p, p, p, i, i, f, i, p]
             lib.wis_layer_norm.restype = i
-            lib.wis_flash_attention_packed.argtypes = [p, p, p, p, i, i, i, i, f, p]
+            lib.wis_flash_attention_packed.argtypes = [p, p, p, p, i, i, i, i, f, i, p]
             lib.wis_flash_attention_packed.restype = i
-            lib.wis_flash_attention.argtypes = [p, p, p, p, i, i, i, i, f, p]
+            lib.wis_flash_attention.argtypes = [p, p, p, p, i, i, i, i, f, i, p]
             lib.wis_flash_attention.restype = i
             lib.wis_fused_decode_workspace_bytes.argtypes = [i, i]
             lib.wis_fused_decode_workspace_bytes.restype = ll
@@ -112,7 +119,9 @@ def kernels() -> ctypes.CDLL:
             lib.wis_fused_gpt_head.restype = i
             lib.wis_int8_matmul_splits.argtypes = [i] * 4
             lib.wis_int8_matmul_splits.restype = i
-            lib.wis_int8_matmul.argtypes = [p] * 5 + [i] * 5 + [p]
+            lib.wis_int8_matmul_counters.argtypes = [i]
+            lib.wis_int8_matmul_counters.restype = i
+            lib.wis_int8_matmul.argtypes = [p] * 6 + [i] * 5 + [p]
             lib.wis_int8_matmul.restype = i
             lib.wis_ancestry_attention.argtypes = [p] * 4 + [i] * 5 + [f, p, p]
             lib.wis_ancestry_attention.restype = i

@@ -8,8 +8,9 @@ Replaces the TPU kernels ``wis_tpu/ops/flash.py`` ``flash_attention_packed``
 softmax(q·kᵀ/√Dh)·v with f32 scores; keys at or past T never take part.
 The kernel is bound by the tensor cores' rate at the encoder's shapes;
 ``csrc/flash_attention.cu`` says how its design feeds them and keeps the
-T×T scores out of device memory. The same numbers give bit-identical
-outputs in either layout.
+T×T scores out of device memory: at head width 64 and 128 a TMA ring and
+``wgmma`` for both products, at every other width a ``mma.sync`` body.
+The same numbers give bit-identical outputs in either layout.
 
 ``flash_attention_packed`` and ``flash_attention`` launch the kernel for
 CUDA tensors and count the launch in their ``.launches``; they take the
@@ -63,6 +64,7 @@ def _launch(name: str, fn, q, k, v, out, *dims) -> None:
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *dims,
+            0,  # consumer warpgroups per block: the kernel's choice
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(rc, name)

@@ -92,11 +92,27 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+_counters: Dict[int, torch.Tensor] = {}
+
+
+def _split_counters(device: torch.device, n: int) -> torch.Tensor:
+    """The zeroed int32 counters a split product takes (one per column
+    tile; each launch leaves them at 0), kept per device and grown as
+    needed. Launches that share them must not overlap: the port issues
+    its products on one stream."""
+    have = _counters.get(device.index)
+    if have is None or have.numel() < n:
+        have = _counters[device.index] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                                     device=device)
+    return have
+
+
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """y (M, N) = ``int8_matmul_plain(x, q, s)``: CUDA tensors run
     ``csrc/int8_matmul.cu`` (x of any float dtype, rounded to bf16 as the
     plain version does; K a multiple of 128 and N of 64), one launch per
-    call; CPU tensors run the plain version."""
+    call (at most 64 rows, K split over the SMs, the splits summed in the
+    same launch); CPU tensors run the plain version."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, q, s)
     _check(x.device.type == "cuda", f"unsupported device {x.device}")
@@ -121,9 +137,11 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tens
     splits = lib.wis_int8_matmul_splits(m, k, n, _sm_count(x.device.index))
     part = torch.empty(splits * m * n if splits > 1 else 0, dtype=torch.float32,
                        device=x.device)
+    sem = _split_counters(x.device, lib.wis_int8_matmul_counters(n))
     with torch.cuda.device(x.device):
         rc = lib.wis_int8_matmul(xb.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
-                                 part.data_ptr(), m, k, n, splits, int(out_dtype == torch.float32),
+                                 part.data_ptr(), sem.data_ptr(), m, k, n, splits,
+                                 int(out_dtype == torch.float32),
                                  torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "int8_matmul")
     int8_matmul.launches += 1

@@ -17,6 +17,12 @@ without the checkpoint itself:
   pass plus the cross-KV projection and checks both are finite.
 
 Exposed as ``python -m wis_tpu_torch.cli convert-model --selftest <size>``.
+
+:func:`synthetic_coqui_sd` is the GPT and HiFi-GAN half of the JAX
+package's XTTS v2 ``model.pth`` key list, zero-filled as there or, given
+a seed, filled with seeded values so that a stream from it differs from
+one from the seeded random trees (``chip_smoke.py`` loads one at full
+width).
 """
 
 from __future__ import annotations
@@ -175,3 +181,84 @@ def whisper_selftest(size: str, forward: bool = True, device: DeviceLike = "cuda
         if not ok:
             raise AssertionError("non-finite encoder output at full dims")
     return report
+
+
+# --------------------------------------------------------------------------- #
+# XTTS
+# --------------------------------------------------------------------------- #
+def synthetic_coqui_sd(gpt_cfg, voc_cfg, seed=None) -> Dict[str, torch.Tensor]:
+    """The published XTTS-v2 ``model.pth`` keys of the GPT and the HiFi-GAN
+    at the given dims, f32 on the CPU (the published position tables carry
+    +2/+3 start/stop rows over the config maxima; the vocoder's convolutions
+    are weight-normed, ``weight_g``/``weight_v``). Zero-filled (``weight_g``
+    ones) as the JAX package's ``synthetic_coqui_sd``; with a ``seed``,
+    weights ~ N(0, 0.02²) from a ``torch.Generator`` and LayerNorm gains 1."""
+    gen = None if seed is None else torch.Generator().manual_seed(seed)
+    D, L = gpt_cfg.d_model, gpt_cfg.n_layer
+
+    def w(*shape):
+        if gen is None:
+            return torch.zeros(shape)
+        return torch.randn(shape, generator=gen) * 0.02
+
+    def gain(*shape):
+        return torch.ones(shape) if gen is not None else torch.zeros(shape)
+
+    z = torch.zeros
+    text_pos = gpt_cfg.max_text_tokens + 2
+    mel_pos = gpt_cfg.max_audio_tokens + 3
+    sd = {
+        "gpt.text_embedding.weight": w(gpt_cfg.n_text_vocab, D),
+        "gpt.text_pos_embedding.emb.weight": w(text_pos, D),
+        "gpt.mel_embedding.weight": w(gpt_cfg.n_audio_vocab, D),
+        "gpt.mel_pos_embedding.emb.weight": w(mel_pos, D),
+        "gpt.gpt.ln_f.weight": gain(D),
+        "gpt.gpt.ln_f.bias": z(D),
+        "gpt.final_norm.weight": gain(D),
+        "gpt.final_norm.bias": z(D),
+        "gpt.text_head.weight": w(gpt_cfg.n_text_vocab, D),
+        "gpt.text_head.bias": z(gpt_cfg.n_text_vocab),
+        "gpt.mel_head.weight": w(gpt_cfg.n_audio_vocab, D),
+        "gpt.mel_head.bias": z(gpt_cfg.n_audio_vocab),
+    }
+    for i in range(L):
+        p = f"gpt.gpt.h.{i}."
+        sd[p + "ln_1.weight"] = gain(D)
+        sd[p + "ln_1.bias"] = z(D)
+        sd[p + "attn.bias"] = torch.ones((1, 1, mel_pos, mel_pos))
+        sd[p + "attn.masked_bias"] = torch.tensor(-1e4)
+        sd[p + "attn.c_attn.weight"] = w(D, 3 * D)
+        sd[p + "attn.c_attn.bias"] = z(3 * D)
+        sd[p + "attn.c_proj.weight"] = w(D, D)
+        sd[p + "attn.c_proj.bias"] = z(D)
+        sd[p + "ln_2.weight"] = gain(D)
+        sd[p + "ln_2.bias"] = z(D)
+        sd[p + "mlp.c_fc.weight"] = w(D, 4 * D)
+        sd[p + "mlp.c_fc.bias"] = z(4 * D)
+        sd[p + "mlp.c_proj.weight"] = w(4 * D, D)
+        sd[p + "mlp.c_proj.bias"] = z(D)
+    h = "hifigan_decoder.waveform_decoder."
+
+    def wn(prefix, *shape):
+        sd[prefix + ".weight_v"] = w(*shape)
+        sd[prefix + ".weight_g"] = torch.ones((shape[0],) + (1,) * (len(shape) - 1))
+
+    ch = voc_cfg.upsample_initial
+    wn(h + "conv_pre", ch, voc_cfg.in_dim, 7)
+    sd[h + "conv_pre.bias"] = z(ch)
+    sd[h + "cond_layer.weight"] = w(ch, voc_cfg.cond_dim, 1)
+    sd[h + "cond_layer.bias"] = z(ch)
+    for i, k in enumerate(voc_cfg.upsample_kernels):
+        out = ch // 2
+        wn(h + f"ups.{i}", ch, out, k)
+        sd[h + f"ups.{i}.bias"] = z(out)
+        for j, rk in enumerate(voc_cfg.resblock_kernels):
+            ridx = i * len(voc_cfg.resblock_kernels) + j
+            for d in range(len(voc_cfg.resblock_dilations[j])):
+                for conv in ("convs1", "convs2"):
+                    wn(h + f"resblocks.{ridx}.{conv}.{d}", out, out, rk)
+                    sd[h + f"resblocks.{ridx}.{conv}.{d}.bias"] = z(out)
+        ch = out
+    wn(h + "conv_post", 1, ch, 7)
+    sd[h + "conv_post.bias"] = z(1)
+    return sd
