@@ -5,8 +5,16 @@ in the PyTorch/CUDA port (``wis_tpu_torch``), on one NVIDIA GPU.
 Run from the repository root, with one card visible:
 
     python3 chip_profile.py [--out build/profile]
+    python3 chip_profile.py --parent DIR [--out build/profile]
 
 Prints, each on its own line, with the card's name and power limit first:
+
+0. one fused decode step's device time by kernel kind (the five int8
+   products, self- and cross-attention, told apart by their launch order
+   in a layer) from the kernel intervals of five steps under
+   ``torch.profiler``, at BK 5 over a 128-position cache and at BK 20 over
+   four windows and 256 positions, int8 cross-KV; then ``int8_matmul`` at
+   the step's product shapes as a reference point;
 
 1. per-phase device-synchronised host times (medians) for one 30 s window:
    log-mel, encoder, cross-KV; one beam-5 decode step (BK=5) of the eager
@@ -35,6 +43,14 @@ Prints, each on its own line, with the card's name and power limit first:
    stream times (first chunk and total, medians of 3) and one stream
    under ``torch.profiler`` (launches, summed kernel time, busy share of
    the profiled stream and of the unprofiled median).
+
+``--parent DIR`` compares this tree with another checkout of the repo
+instead: it loads that checkout's kernel library, built from its own
+sources (``chip_smoke._parent_library``), breaks both trees' steps down as
+in part 0 on the same inputs, then times part 2's and 3's unprofiled
+requests on the fused path in turns parent / change / change / parent, the
+parent's library standing in for this tree's behind the same wrappers
+(the kernels' C interfaces are the same).
 
 Each path's operator table by device time goes to
 ``<out>/profile_ops_<path>.txt``. The last line is one JSON object with
@@ -140,6 +156,103 @@ def fused_step_times(torch, engine, loaded):
     }
 
 
+#: the eight launches of one decoder layer of the fused step, in launch
+#: order (csrc/fused_decode.cu)
+STEP_KINDS = ("qkv product (LN1)", "self-attention", "Wo product (+x)", "Wcq product (LN2)",
+              "cross-attention", "Wco product (+x)", "W1 product (LN3, gelu)",
+              "W2 product (+x, deferred scale)")
+#: the step's breakdown cases: (BK, t_cache, n_seq), int8 cross-KV
+STEP_CASES = ((5, 128, 1), (20, 256, 4))
+#: the step's five int8 products at BK 5, as (M, K, N) of one int8_matmul
+STEP_PRODUCTS = ((5, 1280, 3840), (5, 1280, 1280), (5, 1280, 5120), (5, 5120, 1280))
+
+
+def step_breakdown(torch, dev, cfg, packed, trees, steps=5):
+    """Device time of one fused step by kernel kind, from the kernel
+    intervals of ``steps`` steps under ``torch.profiler``: each layer's
+    eight launches are told apart by their order, checked against the
+    attention kernels' names. ``trees`` maps a label to a kernel library
+    and its check (this tree's, a parent checkout's). Also times
+    ``int8_matmul`` at the step's product shapes as a reference point."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import _median_ms, lib_decode_step
+    from wis_tpu_torch.ops.quant import int8_matmul, quantize_weight
+
+    out = {}
+    L = cfg.n_text_layer
+    for bk, t_cache, n_seq in STEP_CASES:
+        inp = _step_inputs(torch, dev, cfg, t_cache, True, False, seed=t_cache, n_seq=n_seq)
+        for label, (lib, check) in trees.items():
+            fn = lib_decode_step(torch, lib, check, cfg, packed, inp)
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    fn()
+                torch.cuda.synchronize()
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                prof.export_chrome_trace(path)
+                with open(path) as f:
+                    events = json.load(f)["traceEvents"]
+            kernels = sorted((e["ts"], e["dur"], e["name"]) for e in events
+                             if e.get("cat") == "kernel" and e.get("ph") == "X")
+            # the x_emb copy before each step is one more kernel
+            layer = [k for k in kernels if "elementwise" not in k[2] and "copy" not in k[2]]
+            if len(layer) != steps * L * len(STEP_KINDS):
+                raise RuntimeError(f"{label}: {len(layer)} step kernels in the trace, want "
+                                   f"{steps * L * len(STEP_KINDS)}")
+            us = [0.0] * len(STEP_KINDS)
+            for i, (_, dur, name) in enumerate(layer):
+                kind = i % len(STEP_KINDS)
+                want = {1: "self_attention", 4: "cross_attention"}.get(kind)
+                if want and want not in name:
+                    raise RuntimeError(f"{label}: launch {i} is {name}, want {want}")
+                us[kind] += dur / steps
+            case = f"step_bk{bk}_t{t_cache}_nseq{n_seq}_{label}"
+            total = sum(us)
+            print(f"{case}: kernels {total / 1000:.4f} ms per step; " + ", ".join(
+                f"{k} {u / 1000:.4f} ms ({u / total:.1%})" for k, u in zip(STEP_KINDS, us)))
+            out[f"{case}_kernel_ms"] = total / 1000
+            out[f"{case}_by_kind_ms"] = dict(zip(STEP_KINDS, (u / 1000 for u in us)))
+            out[f"{case}_graph_ms"] = _median_ms(fn)
+            print(f"{case}: graph-replayed step {out[f'{case}_graph_ms']:.4f} ms")
+    for m, k, n in STEP_PRODUCTS:
+        g = torch.Generator(device=dev).manual_seed(m + k + n)
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        leaf = quantize_weight(torch.randn((k, n), generator=g, device=dev) * 0.05)
+        ms = _median_ms(lambda: int8_matmul(x, leaf["q"], leaf["s"]))
+        print(f"int8_matmul M={m} K={k} N={n}: {ms:.4f} ms")
+        out[f"int8_matmul_{m}x{k}x{n}_ms"] = ms
+    return out
+
+
+def request_turns(torch, engine, settings, parent_lib, out_dir):
+    """Part 2's and 3's unprofiled request latencies on the fused path, in
+    turns parent / change / change / parent: for a parent turn the
+    parent's kernel library takes this tree's place in ``_build``, so
+    every wrapper launches the parent's kernels. Keys are prefixed
+    ``turn<i>_<tree>_``."""
+    from wis_tpu_torch.ops import _build
+
+    own = _build.kernels()
+    settings.fused_decode = PATHS["fused"]
+    out = {}
+    for i, (label, lib) in enumerate((("parent", parent_lib), ("change", own),
+                                      ("change", own), ("parent", parent_lib))):
+        _build._lib = lib
+        try:
+            engine.transcribe(_audio_i16(1000, 99), beam_size=5, max_tokens=4)  # warm-up
+            part = request_latency(engine)
+            part.update(request_kinds(torch, engine, out_dir, profiled=False))
+        finally:
+            _build._lib = own
+        out.update({f"turn{i}_{label}_{k}": v for k, v in part.items()})
+    return out
+
+
 def request_latency(engine, reps=3):
     out = {}
     for i, (ms, cap) in enumerate(REQUESTS):
@@ -230,9 +343,10 @@ def _kinds(engine):
     }
 
 
-def request_kinds(torch, engine, out_dir, reps=3):
+def request_kinds(torch, engine, out_dir, reps=3, profiled=True):
     """Each kind once to warm it, ``reps`` unprofiled calls (host clock
-    around the call and a device sync), then one profiled call."""
+    around the call and a device sync), then one profiled call (unless
+    ``profiled`` is false)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     out = {}
@@ -241,6 +355,8 @@ def request_kinds(torch, engine, out_dir, reps=3):
         ms = [_median_s(torch, call, 1) for _ in range(reps)]
         med = statistics.median(ms)
         out[f"{name}_ms"], out[f"{name}_ms_all"] = med, ms
+        if not profiled:
+            continue
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             with record_function("request"):
                 call()
@@ -332,6 +448,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/profile", help="directory for the ops table")
+    ap.add_argument("--parent", help="another checkout of this repo: compare its kernels "
+                    "with this tree's (the step by kernel kind, then the requests in turns) "
+                    "instead of the full profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device available", file=sys.stderr)
@@ -356,6 +475,19 @@ def main() -> int:
         for key, val in part.items():
             print(f"{prefix}{key}: {val}")
             result[prefix + key] = val
+
+    from chip_smoke import _parent_library
+    from wis_tpu_torch.ops import _build
+
+    parent = _parent_library(args.parent) if args.parent else None
+    trees = {"parent": parent} if parent else {}
+    trees["change" if parent else "tree"] = (_build.kernels(), _build.check)
+    report(step_breakdown(torch, engine.device, loaded.cfg, engine._packed_decoder(loaded),
+                          trees))
+    if parent:
+        report(request_turns(torch, engine, settings, parent[0], args.out), "fused_")
+        print(json.dumps(result))
+        return 0
 
     report(phase_times(torch, engine, loaded))
     ms, cap = REQUESTS[0]

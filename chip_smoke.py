@@ -6,9 +6,12 @@ Run from the repository root, with one card visible:
     python3 chip_smoke.py [--parent <another checkout>]
 
 With ``--parent`` (an unpacked archive of the parent commit's files, say)
-phase 3 also builds that checkout's kernels and times its ``int8_matmul``
-and flash kernels beside this tree's on the same inputs, in turns parent /
-change / change / parent.
+the script also builds that checkout's kernels and times them beside this
+tree's on the same inputs, in turns parent / change / change / parent,
+each side held to its plain version first: in phase 3 ``int8_matmul``,
+``layer_norm`` (beside ``F.layer_norm``) and the flash kernels, in phase 4
+the fused decode step at each non-trap case, in phase 7 the GPT step at
+its three cache buckets.
 
 Phases, each printed on its own lines; any failure raises and the script
 exits non-zero without printing a result:
@@ -18,7 +21,7 @@ exits non-zero without printing a result:
 2. build the hand-written kernels from ``wis_tpu_torch/csrc`` (one nvcc per
    source, in parallel, into ``build/wis_tpu_torch/``) and print the build
    seconds and, from ``-Xptxas -v``, the registers and spills of the
-   ``int8_matmul`` and Hopper flash kernels;
+   ``int8_matmul``, Hopper flash, LayerNorm and decode-step kernels;
 3. hold each encoder kernel against its plain PyTorch version on the card,
    in bf16, at the encoder's shapes (flash also on inputs that expose an
    unmasked ragged key tile; the head-major flash kernel also at head
@@ -571,6 +574,32 @@ def check_fused_step(torch, dev, cfg, packed):
     return rows
 
 
+def lib_decode_step(torch, lib, check, cfg, packed, inp):
+    """fn() → x_out: one step of ``lib``'s ``wis_fused_decode_step`` (this
+    tree's library or another checkout's) on ``_step_inputs``, called as
+    the wrapper calls it: x_emb copied into the step's buffer first, the
+    caches written in place, the library's own workspace size."""
+    L, D, H = cfg.n_text_layer, cfg.n_text_state, cfg.n_text_head
+    dev, bk = inp["x_emb"].device, inp["x_emb"].shape[0]
+    bkt, sx = inp["k_cache"].shape[-1], inp["xa_k"].shape[-1]
+    ws = torch.empty(lib.wis_fused_decode_workspace_bytes(D, bk), dtype=torch.uint8, device=dev)
+    x = torch.empty_like(inp["x_emb"])
+    xs = inp["xa_s"]
+
+    def fn():
+        x.copy_(inp["x_emb"])
+        check(lib.wis_fused_decode_step(
+            packed.w.data_ptr(), packed.s.data_ptr(), packed.b.data_ptr(), packed.ln.data_ptr(),
+            x.data_ptr(), inp["k_cache"].data_ptr(), inp["v_cache"].data_ptr(),
+            inp["xa_k"].data_ptr(), inp["xa_v"].data_ptr(),
+            xs.data_ptr() if xs is not None else None, inp["sel"].data_ptr(), inp["pos"],
+            ws.data_ptr(), L, D, H, bk, bkt // bk, inp["n_seq"], sx // inp["n_seq"],
+            inp["s_audio"], torch.cuda.current_stream(dev).cuda_stream), "fused_decode_step")
+        return x
+
+    return fn
+
+
 #: fused head vs plain: |Δ| bound on the candidates' values and on lse.
 #: Both compute f32 dots of the same bf16 operands in another order
 #: (~1e-5 at these magnitudes), but the LayerNorm's statistics too, and an
@@ -709,10 +738,11 @@ def _parent_library(parent):
 
 
 def compare_with_parent(torch, dev, parent):
-    """Rows 6, 2 and 3 against the parent checkout's kernels on the same
+    """Rows 6, 1, 2 and 3 against the parent checkout's kernels on the same
     inputs, timed in turns parent / change / change / parent at every
-    int8_matmul shape and every packed and head-major flash shape; each
-    side's output held to its plain version first. Returns {shape: times}."""
+    int8_matmul shape, the encoder's LayerNorm (beside ``F.layer_norm``)
+    and every packed and head-major flash shape; each side's output held
+    to its plain version first. Returns {shape: times}."""
     from wis_tpu_torch.ops.flash import (
         flash_attention,
         flash_attention_packed,
@@ -789,6 +819,26 @@ def compare_with_parent(torch, dev, parent):
                  stream()), "parent flash")
         return o
 
+    from wis_tpu_torch.ops.layernorm import layer_norm_cuda, layer_norm_plain
+
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((1, 1500, 1280), dtype=np.float32) * 3 + 0.5)
+    x = x.to(dev, torch.bfloat16)
+    g = torch.from_numpy(1 + 0.1 * rng.standard_normal(1280, dtype=np.float32)).to(dev)
+    b = torch.from_numpy(0.1 * rng.standard_normal(1280, dtype=np.float32)).to(dev)
+    y = torch.empty_like(x)
+
+    def parent_ln():
+        check(lib.wis_layer_norm(x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(), 1500,
+                                 1280, 1e-5, 1, stream()), "parent layer_norm")
+        return y
+
+    turns("layer_norm (1,1500,1280) bf16", parent_ln, lambda: layer_norm_cuda(x, g, b),
+          layer_norm_plain(x, g, b))
+    gb, bb = g.to(torch.bfloat16), b.to(torch.bfloat16)  # F.layer_norm's affine in x's dtype
+    lib_ms = _median_ms(lambda: torch.nn.functional.layer_norm(x, (1280,), gb, bb))
+    print(f"layer_norm (1,1500,1280) bf16: F.layer_norm {lib_ms:.4f} ms; change/F.layer_norm "
+          f"{min(out['layer_norm (1,1500,1280) bf16'][1:3]) / lib_ms:.3f}")
     for heads in (20, 10):
         q, k, v = _flash_inputs(torch, dev, heads, False, 2 + heads)
         o = torch.empty_like(q)
@@ -805,6 +855,66 @@ def compare_with_parent(torch, dev, parent):
               lambda q=q, k=k, v=v, o=o, b=b, h=h, t=t, dh=dh: parent_flash(
                   lib.wis_flash_attention, q, k, v, o, b, h, t, dh, float(dh ** -0.5)),
               lambda q=q, k=k, v=v: flash_attention(q, k, v), flash_attention_plain(q, k, v))
+    return out
+
+
+def _turns_rel(torch, name, parent_fn, change_fn, want, tol):
+    """Both sides held to the plain result ``want`` in relative norm (and
+    finite), then timed parent / change / change / parent."""
+    for label, fn in (("parent", parent_fn), ("change", change_fn)):
+        got = fn()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).norm() / want.float().norm())
+        if not (err <= tol and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{name}: the {label} kernel disagrees with plain ({err:.3e})")
+    t = [_median_ms(f, reps=5, replays=7) for f in (parent_fn, change_fn, change_fn, parent_fn)]
+    ratio = min(t[1], t[2]) / min(t[0], t[3])
+    print(f"{name}: parent {t[0]:.4f}, change {t[1]:.4f}, change {t[2]:.4f}, parent "
+          f"{t[3]:.4f} ms; change/parent {ratio:.3f}"
+          + (" — SLOWER than the parent by more than 5%" if ratio > 1.05 else ""))
+    return t
+
+
+def compare_steps_with_parent(torch, dev, parent, cfg, packed):
+    """Row 4 against the parent checkout's step at every non-trap case of
+    ``check_fused_step``, both sides through their C functions with their
+    own workspace sizes, each held to the plain step first."""
+    from wis_tpu_torch.ops.fused_decode import fused_decode_step_plain
+
+    lib, check = _parent_library(parent)
+    mine = _build_lib()
+    from wis_tpu_torch.ops import _build
+
+    out = {}
+    for t_cache, n_seq in ((128, 1), (256, 1), (256, 4)):
+        inp = _step_inputs(torch, dev, cfg, t_cache, True, False, seed=t_cache, n_seq=n_seq)
+        want = fused_decode_step_plain(cfg, packed, **dict(
+            inp, k_cache=inp["k_cache"].clone(), v_cache=inp["v_cache"].clone()))[0]
+        bk = inp["x_emb"].shape[0]
+        name = f"fused_decode_step BK={bk} n_seq={n_seq} t_cache={t_cache} xa int8"
+        out[(t_cache, n_seq)] = _turns_rel(
+            torch, name, lib_decode_step(torch, lib, check, cfg, packed, inp),
+            lib_decode_step(torch, mine, _build.check, cfg, packed, inp), want, STEP_REL_NORM)
+    return out
+
+
+def compare_gpt_steps_with_parent(torch, dev, parent, cfg, packed, t_full):
+    """Row 7 against the parent checkout's GPT step at the three non-trap
+    cases of ``check_fused_gpt_step``, as ``compare_steps_with_parent``."""
+    from wis_tpu_torch.ops import _build
+    from wis_tpu_torch.ops.fused_gpt import fused_gpt_step_plain
+
+    lib, check = _parent_library(parent)
+    mine = _build_lib()
+    out = {}
+    for t_pad in (256, 512, t_full):
+        inp = _gpt_step_inputs(torch, dev, cfg, t_pad, False, seed=t_pad)
+        want = fused_gpt_step_plain(cfg, packed, **dict(
+            inp, k_cache=inp["k_cache"].clone(), v_cache=inp["v_cache"].clone()))[0]
+        name = f"fused_gpt_step L={cfg.n_layer} D={cfg.d_model} t_pad={t_pad} pos={inp['pos']}"
+        out[t_pad] = _turns_rel(
+            torch, name, lib_gpt_step(torch, lib, check, cfg, packed, inp),
+            lib_gpt_step(torch, mine, _build.check, cfg, packed, inp), want, STEP_REL_NORM)
     return out
 
 
@@ -831,19 +941,29 @@ def _host_us(torch, fn, calls=200):
     return statistics.median(rounds)
 
 
-def print_ptxas(names=("int8_matmul_kernel", "flash_wgmma_kernel")):
-    """Registers, shared memory and spills of the kernels named, from the
-    build's -Xptxas -v output."""
+def print_ptxas(names=("int8_matmul_kernel", "flash_wgmma_kernel", "int8_product_kernel",
+                       "self_attention_kernel", "cross_attention_kernel", "layer_norm_kernel")):
+    """Registers and spills of the kernels named, one line per instance,
+    from the build's -Xptxas -v output."""
     from wis_tpu_torch.ops import _build
 
     for log in sorted(_build.library_path().parent.glob("*.ptxas.txt")):
-        fn = None
+        fn, spill = None, ""
         for line in log.read_text().splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                fn = m.group(1) if any(n in m.group(1) for n in names) else None
-            elif fn and ("spill" in line or "Used" in line):
-                print(f"ptxas {fn}: {line.strip()}")
+                fn = next((n for n in names if n in m.group(1)), None)
+                if fn:
+                    tail = m.group(1).split(fn, 1)[1]
+                    fn = fn + (re.sub(r"E+v.*$", "", tail).replace("I", "<", 1) + ">"
+                               if tail.startswith("I") else "")
+            elif fn and "spill" in line:
+                spill = line.strip()
+            elif fn and "Used" in line:
+                regs = re.search(r"Used (\d+) registers", line)
+                print(f"ptxas {log.name.split('.')[0]} {fn}: {regs.group(1) if regs else '?'} "
+                      f"registers; {spill}")
+                fn = None
 
 
 #: ancestry_attention cases (BK, T, pos): one window's beams and four
@@ -1120,6 +1240,28 @@ def check_fused_gpt_step(torch, dev, cfg, packed, t_full):
         rows[t_pad] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     return rows
+
+
+def lib_gpt_step(torch, lib, check, cfg, packed, inp):
+    """fn() → x_out: one step of ``lib``'s ``wis_fused_gpt_step`` on
+    ``_gpt_step_inputs``, called as the wrapper calls it (see
+    ``lib_decode_step``)."""
+    L, D = cfg.n_layer, cfg.d_model
+    dev, bk = inp["x_emb"].device, inp["x_emb"].shape[0]
+    bkt = inp["k_cache"].shape[-1]
+    ws = torch.empty(lib.wis_fused_gpt_workspace_bytes(D, bk), dtype=torch.uint8, device=dev)
+    x = torch.empty_like(inp["x_emb"])
+
+    def fn():
+        x.copy_(inp["x_emb"])
+        check(lib.wis_fused_gpt_step(
+            packed.w.data_ptr(), packed.s.data_ptr(), packed.b.data_ptr(), packed.ln.data_ptr(),
+            x.data_ptr(), inp["k_cache"].data_ptr(), inp["v_cache"].data_ptr(),
+            inp["sel"].data_ptr(), inp["pos"], ws.data_ptr(), L, D, cfg.n_head, bk, bkt // bk,
+            torch.cuda.current_stream(dev).cuda_stream), "fused_gpt_step")
+        return x
+
+    return fn
 
 
 #: the GPT head's knob grid: (temperature, top_k, top_p, repetition_penalty,
@@ -1886,7 +2028,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="another checkout of this repo (the parent commit's "
-                    "files): time its int8_matmul and flash kernels beside this tree's")
+                    "files): time its kernels and decode steps beside this tree's")
     args = ap.parse_args()
     import torch
 
@@ -1951,6 +2093,8 @@ def main() -> int:
         f"in {time.perf_counter() - t0:.2f} s"
     )
     step = check_fused_step(torch, dev, loaded.cfg, packed)
+    if args.parent:
+        compare_steps_with_parent(torch, dev, args.parent, loaded.cfg, packed)
     head = check_fused_head(torch, dev, loaded.cfg)
     grammar = check_grammar_head(torch, dev, loaded.cfg)
 
@@ -1970,6 +2114,9 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.2f} s")
     t_full = tts_full_bucket(xtts)
     gpt_step = check_fused_gpt_step(torch, dev, xtts.cfg.gpt, xtts.gpt_packed, t_full)
+    if args.parent:
+        compare_gpt_steps_with_parent(torch, dev, args.parent, xtts.cfg.gpt, xtts.gpt_packed,
+                                      t_full)
     gpt_head = check_fused_gpt_head(torch, dev, xtts.cfg.gpt, xtts.gpt_head_packed)
     time_xtts_epilogue(torch, dev, xtts)
     tts_counters = (fused_gpt_step, fused_gpt_head)

@@ -418,17 +418,17 @@ def _narrow_decoder(dev, n_layer=2, d=256, heads=4):
     return cfg, pack_decoder(random_params(cfg, seed=3, device=dev), cfg)
 
 
-def _step_case(dev, cfg, bk, n_seq, t_cache, s_audio, xa_int8, seed):
-    """Step inputs at position t_cache // 2 with random ancestry inside
-    each sequence's beams; the columns no row selects, and the cross-KV
-    pad columns, hold keys of ±30 and values of 100 (a kernel reading them
-    moves every output far off)."""
+def _step_case(dev, cfg, bk, n_seq, t_cache, s_audio, xa_int8, seed, pos=None):
+    """Step inputs at position ``pos`` (default t_cache // 2) with random
+    ancestry inside each sequence's beams; the columns no row selects, and
+    the cross-KV pad columns, hold keys of ±30 and values of 100 (a kernel
+    reading them moves every output far off)."""
     from wis_tpu_torch.ops.fused_decode import quantize_xa_columns
 
     L, D, H = cfg.n_text_layer, cfg.n_text_state, cfg.n_text_head
     beams = bk // n_seq
     s_pad = ((s_audio + 127) // 128) * 128
-    pos = t_cache // 2
+    pos = t_cache // 2 if pos is None else pos
     rng = np.random.default_rng(seed)
     sel = np.zeros((bk, t_cache, bk), np.float32)
     for r in range(bk):
@@ -490,6 +490,80 @@ def test_fused_step_kernel_matches_plain(dev, bk, n_seq, t_cache, s_audio, xa_in
         assert torch.equal(g[..., other], before_c[..., other])
 
 
+def _run_step_both(dev, cfg, packed, inp):
+    """(kernel result, plain result), each on its own copy of the caches."""
+    from wis_tpu_torch.ops.fused_decode import fused_decode_step, fused_decode_step_plain
+
+    kc0, vc0 = inp["k_cache"], inp["v_cache"]
+    got = fused_decode_step(cfg, packed, **dict(inp, k_cache=kc0.clone(), v_cache=vc0.clone()))
+    want = fused_decode_step_plain(
+        cfg, packed, **dict(inp, k_cache=kc0.clone(), v_cache=vc0.clone()))
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _assert_step_close(got, want, inp, bk):
+    """The step's output and this step's cache columns within STEP_REL_NORM
+    of the plain version's, every other cache column untouched."""
+    pos = inp["pos"]
+    cols = slice(pos * bk, (pos + 1) * bk)
+    other = torch.ones(inp["k_cache"].shape[-1], dtype=torch.bool, device=got[0].device)
+    other[cols] = False
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    assert bool(torch.isfinite(got[0]).all()) and rel(got[0], want[0]) <= STEP_REL_NORM
+    for g, w, before_c in ((got[1], want[1], inp["k_cache"]), (got[2], want[2], inp["v_cache"])):
+        assert rel(g[..., cols], w[..., cols]) <= STEP_REL_NORM
+        assert torch.equal(g[..., other], before_c[..., other])
+
+
+@pytest.mark.parametrize("xa_int8", [True, False])
+@pytest.mark.parametrize("s_audio", [1500, 100])
+@pytest.mark.parametrize("where", ["first", "last"])
+@pytest.mark.parametrize("bk,n_seq", [(1, 1), (5, 1), (8, 2), (20, 4), (32, 1), (32, 4)])
+def test_fused_step_edges(dev, bk, n_seq, where, s_audio, xa_int8):
+    """The step at BK 1-32 over one, two and four windows, at the first
+    and the last cache position (no history, then a full one: the split
+    self-attention's empty and full tiles), a full and a short window, int8
+    and bf16 cross-KV, on the trap inputs."""
+    cfg, packed = _narrow_decoder(dev)
+    t_cache = 128
+    pos = 0 if where == "first" else t_cache - 1
+    inp = _step_case(dev, cfg, bk, n_seq, t_cache, s_audio, xa_int8, seed=bk + n_seq + pos,
+                     pos=pos)
+    _assert_step_close(*_run_step_both(dev, cfg, packed, inp), inp, bk)
+
+
+@pytest.mark.parametrize("xa_int8", [True, False])
+@pytest.mark.parametrize("n_seq", [8, 16, 32])
+def test_fused_step_many_windows_at_large_v2_heads(dev, n_seq, xa_int8):
+    """Beam 1 over 8, 16 and 32 windows at large-v2's 20 heads (D = 1280,
+    one layer), as a coalesced batch gives the step: there the
+    cross-attention's column split is set by its cap on columns per block,
+    not by the SM count (int8 and bf16 cross-KV, the trap inputs)."""
+    cfg, packed = _narrow_decoder(dev, n_layer=1, d=1280, heads=20)
+    inp = _step_case(dev, cfg, n_seq, n_seq, 128, 1500, xa_int8, seed=n_seq + xa_int8)
+    _assert_step_close(*_run_step_both(dev, cfg, packed, inp), inp, n_seq)
+
+
+@pytest.mark.parametrize("bk,n_seq,xa_int8", [(5, 1, True), (20, 4, True), (8, 2, False)])
+def test_fused_step_same_bits_call_to_call(dev, bk, n_seq, xa_int8):
+    """Two calls on the same inputs give the same bits: every split sum
+    (products, self- and cross-attention) is taken in a fixed order."""
+    from wis_tpu_torch.ops.fused_decode import fused_decode_step
+
+    cfg, packed = _narrow_decoder(dev)
+    inp = _step_case(dev, cfg, bk, n_seq, 256, 1500, xa_int8, seed=7 + bk)
+    runs = [fused_decode_step(cfg, packed, **dict(inp, k_cache=inp["k_cache"].clone(),
+                                                   v_cache=inp["v_cache"].clone()))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 def test_fused_step_wrapper_refuses_what_the_kernel_does_not_take(dev):
     from wis_tpu_torch.ops.fused_decode import fused_decode_step
 
@@ -504,6 +578,12 @@ def test_fused_step_wrapper_refuses_what_the_kernel_does_not_take(dev):
         (dict(sel=inp["sel"].bfloat16()), "sel must be f32"),
         (dict(x_emb=torch.zeros((33, cfg.n_text_state), device=dev)), "BK=33"),
         (dict(pos=128), "pos 128"),
+        (dict(k_cache=inp["k_cache"][..., :60].contiguous(),
+              v_cache=inp["v_cache"][..., :60].contiguous(), sel=inp["sel"][:, :60].contiguous(),
+              pos=3), "cache width 60"),
+        (dict(s_audio=5000, xa_k=torch.zeros((2, 4, 64, 5120), dtype=torch.int8, device=dev),
+              xa_v=torch.zeros((2, 4, 64, 5120), dtype=torch.int8, device=dev),
+              xa_s=torch.zeros((2, 8, 5120), dtype=torch.bfloat16, device=dev)), "s_audio 5000"),
     ):
         with pytest.raises(ValueError, match=match):
             fused_decode_step(cfg, packed, **dict(inp, **bad))
@@ -589,6 +669,16 @@ def test_fused_head_refuses_what_the_kernel_does_not_take(dev):
 # every other cache column bit-identical; the head's values within two bf16
 # ulps on a real head, and equal decisions on inputs whose logits are exact)
 # --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [1, 3, 3000])
+@pytest.mark.parametrize("d", [384, 512, 768, 1024, 1280, 1000, 4104])
+def test_layer_norm_widths(dev, d, rows, dtype):
+    """Every Whisper width, one that is not a multiple of 256 (lanes past
+    the row's end in the register body) and one past the register body
+    (the three-pass body), at 1, 3 and 3000 rows."""
+    test_layer_norm_kernel_matches_plain(dev, (rows, d), dtype)
+
+
 def _narrow_gpt(dev, n_layer=2, d=256, heads=4):
     from wis_tpu_torch.models.xtts.gpt import GPTConfig, random_gpt
     from wis_tpu_torch.ops.fused_gpt import pack_gpt
@@ -634,6 +724,22 @@ def test_fused_gpt_step_kernel_matches_plain(dev, t_pad, pos, trap):
         assert torch.equal(g[..., other], c0[..., other])
 
 
+def test_fused_gpt_step_same_bits_call_to_call(dev):
+    from wis_tpu_torch.ops.fused_gpt import fused_gpt_step
+
+    cfg, _, packed = _narrow_gpt(dev)
+    rng = np.random.default_rng(11)
+    L, D, t_pad, pos = cfg.n_layer, cfg.d_model, 1152, 900
+    kc = _randn(rng, (L, D, t_pad), dev, torch.bfloat16, scale=0.5)
+    vc = _randn(rng, (L, D, t_pad), dev, torch.bfloat16, scale=0.5)
+    sel = (torch.arange(t_pad, device=dev) < pos).float()[None]
+    x = _randn(rng, (1, D), dev, torch.float32, scale=0.5)
+    runs = [fused_gpt_step(cfg, packed, x, kc.clone(), vc.clone(), sel, pos) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 def test_fused_gpt_step_wrapper_refuses_what_the_kernel_does_not_take(dev):
     from wis_tpu_torch.models.xtts.gpt import GPTConfig
     from wis_tpu_torch.ops.fused_gpt import fused_gpt_step
@@ -649,6 +755,8 @@ def test_fused_gpt_step_wrapper_refuses_what_the_kernel_does_not_take(dev):
         ((cfg, packed, x, kc.float(), kc, sel, 3), "k_cache must be bf16"),
         ((cfg, packed, x, kc, kc, sel.bfloat16(), 3), "sel must be f32"),
         ((cfg, packed, x, kc, kc, sel, 256), "pos 256"),
+        ((cfg, packed, x, kc[..., :252].contiguous(), kc[..., :252].contiguous(),
+          sel[:, :252].contiguous(), 3), "cache width 252"),
         ((cfg, packed, torch.zeros((33, D), device=dev), kc, kc, sel, 3), "bk=33"),
         ((GPTConfig(n_layer=2, n_head=8, d_model=256), packed, x, kc, kc, sel, 3), "head_dim"),
     ):

@@ -119,22 +119,131 @@ __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// LayerNorm of one f32 row by one warp: mean, mean squared deviation,
-// eps 1e-5, affine; rounded once to bf16 and stored with stride `step`.
+// 16 bytes of a row as floats: 4 f32 or 8 bf16 (element 0 first).
+template <typename T>
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const float* p, float* out) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+  __device__ __forceinline__ static void store(float* p, const float* in) {
+    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+  }
+};
+
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
+    bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(p)), out);
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float* in) {
+    uint4 v;
+    v.x = pack_bf16(in[0], in[1]); v.y = pack_bf16(in[2], in[3]);
+    v.z = pack_bf16(in[4], in[5]); v.w = pack_bf16(in[6], in[7]);
+    *reinterpret_cast<uint4*>(p) = v;
+  }
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// LayerNorm statistics of one row by one warp, as the TPU kernels take
+// them: the mean, then the mean of squared deviations, eps, f32.
+//
+// Rows of up to kLnRegs 16-byte vectors a lane (1536 f32, 3072 bf16; d a
+// multiple of the vector) are held in registers: ln_load issues every load
+// of the row before the first reduction (v[j] holds columns
+// (j·32 + lane)·N .. + N, zero past d), ln_stats reduces the registers.
+// Wider rows take ln_stats_passes, two passes over the row.
+constexpr int kLnRegs = 12;
+
+template <typename T>
+__device__ __forceinline__ void ln_load(const T* __restrict__ xr, int d, int lane,
+                                        float (&v)[kLnRegs][Vec16<T>::N]) {
+  constexpr int V = Vec16<T>::N;
+#pragma unroll
+  for (int j = 0; j < kLnRegs; ++j) {
+    const int c = (j * 32 + lane) * V;
+    if (c < d) {
+      Vec16<T>::load(xr + c, v[j]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[j][i] = 0.f;
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void ln_stats(const float (&v)[kLnRegs][V], int d, int lane, float eps,
+                                         float& mean, float& rstd) {
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < kLnRegs; ++j)
+#pragma unroll
+    for (int i = 0; i < V; i += 4) s += (v[j][i] + v[j][i + 1]) + (v[j][i + 2] + v[j][i + 3]);
+  mean = warp_sum(s) / d;
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < kLnRegs; ++j) {
+    if ((j * 32 + lane) * V < d) {
+#pragma unroll
+      for (int i = 0; i < V; i += 4) {
+        const float a0 = v[j][i] - mean, a1 = v[j][i + 1] - mean;
+        const float a2 = v[j][i + 2] - mean, a3 = v[j][i + 3] - mean;
+        ss += (a0 * a0 + a1 * a1) + (a2 * a2 + a3 * a3);
+      }
+    }
+  }
+  rstd = rsqrtf(warp_sum(ss) / d + eps);
+}
+
+template <typename T>
+__device__ __forceinline__ void ln_stats_passes(const T* __restrict__ xr, int d, int lane,
+                                                float eps, float& mean, float& rstd) {
+  float s = 0.f;
+  for (int c = lane; c < d; c += 32) s += to_f32(xr[c]);
+  mean = warp_sum(s) / d;
+  float ss = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float t = to_f32(xr[c]) - mean;
+    ss += t * t;
+  }
+  rstd = rsqrtf(warp_sum(ss) / d + eps);
+}
+
+// LayerNorm of one f32 row by one warp (two passes, any width), eps 1e-5,
+// affine; rounded once to bf16 and stored with stride `step`.
 __device__ __forceinline__ void ln_row_bf16(const float* __restrict__ xr, const float* __restrict__ g,
                                             const float* __restrict__ b, int d,
                                             __nv_bfloat16* dst, int step, int lane) {
-  float s = 0.f;
-  for (int c = lane; c < d; c += 32) s += xr[c];
-  const float mean = warp_sum(s) / d;
-  float ss = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    const float t = xr[c] - mean;
-    ss += t * t;
-  }
-  const float rstd = rsqrtf(warp_sum(ss) / d + 1e-5f);
+  float mean, rstd;
+  ln_stats_passes(xr, d, lane, 1e-5f, mean, rstd);
   for (int c = lane; c < d; c += 32)
     dst[static_cast<size_t>(c) * step] = __float2bfloat16_rn((xr[c] - mean) * rstd * g[c] + b[c]);
+}
+
+// Asynchronous 16-byte copy global → shared (cp.async, L2 only), and its
+// commit and wait: wait_group<N> returns once at most N of this thread's
+// committed groups are still in flight.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace wis

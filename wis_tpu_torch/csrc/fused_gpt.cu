@@ -8,7 +8,8 @@
 //   self-attention over the time-major cache with the causal `sel` mask
 //   and an explicit self column (scored with the f32 q and k); e rounded
 //   to bf16 for P·V while the denominator sums the f32 e; out =
-//   (P·V + e_self·v) / denom, rounded to bf16; this step's bf16 K/V
+//   (P·V + e_self·v) / denom, rounded to bf16 (the kernel splits time and
+//   merges the splits' partials: decode_step.cuh); this step's bf16 K/V
 //   written at pos·bk + row
 //   x += attn·Wo · s + b
 //   h  = bf16(LN2(x));  g_i = bf16(gelu_tanh(h·W1_i · s + b))  (i < 4)
@@ -23,10 +24,12 @@
 // Bound on the H100: device-memory bytes. Each token streams 12 int8
 // (D, D) chunks per layer (377 MB at XTTS v2's 30 layers of D = 1024) and
 // the selected cache columns once; the activations are a few KB. The
-// products keep the weights int8 up to the registers and give each block
-// a 16-column strip of a chunk (fused_decode.cu says how); at bk = 1 they
-// do one multiply-add per weight byte. Columns that `sel` excludes, the
-// stale one at pos among them, are never read.
+// products keep the weights int8 up to the registers and run on the
+// tensor cores, one 64-column strip and one split of K per block;
+// self-attention splits the cache's time steps over eight blocks per head
+// (128 blocks at bk = 1). fused_decode.cu says how both keep to the bound.
+// Columns that `sel` excludes, the stale one at pos among them, are never
+// used.
 //
 // Plain C interface for ctypes; launches on the caller's stream and
 // returns the first CUDA error.
@@ -77,12 +80,13 @@ extern "C" long long wis_fused_gpt_workspace_bytes(int D, int bk) {
 // x_out on return; k/v_cache (L, D, bk·T) bf16 are written in place at
 // columns pos·bk + row; sel (bk, bk·T) f32. w (L, 12, D, D) int8, s/b
 // (L, 12, D) f32, ln (L, 4, D) f32. Head dim 64, D a multiple of 64,
-// bk ≤ 32; the wrapper checks.
+// bk ≤ 32, bk·T a multiple of 8; the wrapper checks.
 extern "C" int wis_fused_gpt_step(const void* w, const void* s, const void* b, const void* ln,
                                   void* x, void* k_cache, void* v_cache, const void* sel,
                                   int pos, void* ws, int L, int D, int H, int bk, int t_cache,
                                   void* stream) {
-  if (D != H * kHeadDim || D % 64 || bk < 1 || bk > kMaxRows || pos < 0 || pos >= t_cache)
+  if (D != H * kHeadDim || D % 64 || bk < 1 || bk > kMaxRows || pos < 0 || pos >= t_cache ||
+      bk * t_cache % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const GptWorkspace wk = carve_gpt(ws, D, bk);
@@ -90,9 +94,7 @@ extern "C" int wis_fused_gpt_step(const void* w, const void* s, const void* b, c
   const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
   const size_t dd = static_cast<size_t>(D) * D;
   float* xf = static_cast<float*>(x);
-  const size_t self_smem = sizeof(float) * bkt;
-  cudaError_t e = allow_smem(self_attention_kernel, self_smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaError_t e = cudaSuccess;
 
   for (int l = 0; l < L && e == cudaSuccess; ++l) {
     const int8_t* wl = static_cast<const int8_t*>(w) + l * NC * dd;
@@ -116,9 +118,12 @@ extern "C" int wis_fused_gpt_step(const void* w, const void* s, const void* b, c
     e = launch_product<kStoreF32, true>(p, 3, st);
     if (e != cudaSuccess) break;
 
-    self_attention_kernel<<<dim3(H, bk), kThreads, self_smem, st>>>(
-        wk.qkv, kcl, vcl, static_cast<const float*>(sel), wk.attn, bk, D, bkt, pos, scale);
-    if ((e = cudaGetLastError()) != cudaSuccess) break;
+    SelfArgs sa{};
+    sa.qkv = wk.qkv; sa.kc = kcl; sa.vc = vcl; sa.sel = static_cast<const float*>(sel);
+    sa.out = wk.attn;
+    sa.bk = bk; sa.D = D; sa.t_cache = t_cache; sa.pos = pos; sa.scale = scale;
+    e = launch_self(sa, H, st);
+    if (e != cudaSuccess) break;
 
     // x += attn·Wo
     ProductArgs r = p;

@@ -7,11 +7,14 @@
 //
 // Bound on the H100: device-memory bytes. Each element is read once from
 // HBM and written once (2 + 2 bytes in bf16); there is no reuse and no
-// tensor-core work. The design keeps it to that: one warp per row, 16-byte
-// vector loads and stores (8 bf16 or 4 f32 per lane per access), warp
-// shuffles for the two reductions. The row's later passes (variance,
-// normalize) re-read it from L1/L2 rather than HBM: a 1280-wide bf16 row
-// is 2.5 KB.
+// tensor-core work. The design keeps it to that: one warp per row, the
+// row held in registers after one pass of 16-byte loads (a 1280-wide bf16
+// row is 40 values a lane), every load of the row issued before the first
+// reduction, the two statistics from registers by warp shuffles, gamma
+// and beta read as float4, 16-byte stores. Rows wider than 12 vectors a
+// lane (3072 bf16, 1536 f32) take the statistics in two passes and the
+// affine in a third, re-reading the row from L1/L2. The decode steps'
+// LayerNorm prologue (decode_step.cuh) shares the helpers (common.cuh).
 //
 // Plain C interface for ctypes; launches on the caller's stream and
 // returns cudaGetLastError().
@@ -24,85 +27,71 @@
 
 namespace {
 
-using wis::warp_sum;
+using wis::Vec16;
 
-constexpr int kWarpsPerBlock = 4;
+// two rows per block: 750 blocks of 64 threads at 1500 rows, all resident at
+// once on 132 SMs, no SM more than a row past the mean
+constexpr int kWarpsPerBlock = 2;
 
+// y[c .. c + N) = T(((v − mean)·rstd)·γ + β), γ and β read as float4
 template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float* out) {
-    float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
-  __device__ __forceinline__ static void store(float* p, const float* in) {
-    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
-    uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+__device__ __forceinline__ void affine_store(T* yr, const float* __restrict__ gamma,
+                                             const float* __restrict__ beta, int c, float* v,
+                                             float mean, float rstd) {
+  constexpr int V = Vec16<T>::N;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
+  for (int i = 0; i < V; i += 4) {
+    const float4 g = __ldg(reinterpret_cast<const float4*>(gamma + c + i));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(beta + c + i));
+    v[i] = (v[i] - mean) * rstd * g.x + b.x;
+    v[i + 1] = (v[i + 1] - mean) * rstd * g.y + b.y;
+    v[i + 2] = (v[i + 2] - mean) * rstd * g.z + b.z;
+    v[i + 3] = (v[i + 3] - mean) * rstd * g.w + b.w;
   }
-  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float* in) {
-    uint4 v;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = v;
-  }
-};
+  Vec16<T>::store(yr + c, v);
+}
 
+// One row per warp. Rows of up to wis::kLnRegs vectors a lane stay in
+// registers after one pass of 16-byte loads (wis::ln_load, every load
+// issued before the first reduction); wider rows take the statistics in
+// two passes and are read a third time for the affine.
 template <typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 layer_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                  const float* __restrict__ beta, T* __restrict__ y,
-                  int rows, int d, float eps) {
-  constexpr int V = Vec<T>::N;
+                  const float* __restrict__ beta, T* __restrict__ y, int rows, int d, float eps) {
+  constexpr int V = Vec16<T>::N;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= rows) return;
   const T* xr = x + static_cast<size_t>(row) * d;
   T* yr = y + static_cast<size_t>(row) * d;
-  float v[V];
-
-  float s = 0.f;
-  for (int c = lane * V; c < d; c += 32 * V) {
-    Vec<T>::load(xr + c, v);
+  float mean, rstd;
+  if (d <= 32 * V * wis::kLnRegs) {
+    float v[wis::kLnRegs][V];
+    wis::ln_load(xr, d, lane, v);
+    wis::ln_stats(v, d, lane, eps, mean, rstd);
 #pragma unroll
-    for (int i = 0; i < V; ++i) s += v[i];
-  }
-  const float mu = warp_sum(s) / d;
-
-  float ss = 0.f;
-  for (int c = lane * V; c < d; c += 32 * V) {
-    Vec<T>::load(xr + c, v);
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const float t = v[i] - mu;
-      ss += t * t;
+    for (int j = 0; j < wis::kLnRegs; ++j) {
+      const int c = (j * 32 + lane) * V;
+      if (c < d) affine_store(yr, gamma, beta, c, v[j], mean, rstd);
     }
+    return;
   }
-  const float rstd = rsqrtf(warp_sum(ss) / d + eps);
-
+  wis::ln_stats_passes(xr, d, lane, eps, mean, rstd);
   for (int c = lane * V; c < d; c += 32 * V) {
-    Vec<T>::load(xr + c, v);
-#pragma unroll
-    for (int i = 0; i < V; ++i) v[i] = (v[i] - mu) * rstd * gamma[c + i] + beta[c + i];
-    Vec<T>::store(yr + c, v);
+    float v[V];
+    Vec16<T>::load(xr + c, v);
+    affine_store(yr, gamma, beta, c, v, mean, rstd);
   }
+}
+
+template <typename T>
+void launch(const void* x, const void* gamma, const void* beta, void* y, int rows, int d,
+            float eps, cudaStream_t s) {
+  const dim3 grid((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  layer_norm_kernel<T><<<grid, kWarpsPerBlock * 32, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<T*>(y), rows, d, eps);
 }
 
 }  // namespace
@@ -112,17 +101,11 @@ layer_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 extern "C" int wis_layer_norm(const void* x, const void* gamma, const void* beta,
                               void* y, int rows, int d, float eps, int dtype,
                               void* stream) {
-  const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    layer_norm_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
-        static_cast<const float*>(beta), static_cast<__nv_bfloat16*>(y), rows, d, eps);
+    launch<__nv_bfloat16>(x, gamma, beta, y, rows, d, eps, s);
   } else if (dtype == 0) {
-    layer_norm_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(gamma),
-        static_cast<const float*>(beta), static_cast<float*>(y), rows, d, eps);
+    launch<float>(x, gamma, beta, y, rows, d, eps, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -52,6 +52,8 @@ NC = 14
 
 #: the largest BK (rows of one step) the kernels take
 MAX_ROWS = 32
+#: the longest cross-attention window the kernels take (Whisper's is 1500)
+MAX_AUDIO = 2048
 
 
 class PackedDecoder(NamedTuple):
@@ -271,8 +273,8 @@ def fused_decode_step(
     columns pos·BK + row (the TPU kernel aliases them the same way).
 
     CUDA tensors run ``csrc/fused_decode.cu`` (bf16 caches and activations,
-    int8 weights, head_dim 64, D a multiple of 64, BK ≤ 32); CPU tensors
-    run ``fused_decode_step_plain``."""
+    int8 weights, head_dim 64, D a multiple of 64, BK ≤ 32, BK·T a multiple
+    of 8, s_audio ≤ 2048); CPU tensors run ``fused_decode_step_plain``."""
     if x_emb.device.type == "cpu":
         return fused_decode_step_plain(
             cfg, packed, x_emb, k_cache, v_cache, xa_k, xa_v, sel, pos,
@@ -290,6 +292,7 @@ def fused_decode_step(
            f"BK={bk} must be 1..{MAX_ROWS} and a multiple of n_seq={n_seq}")
     bkt = k_cache.shape[-1]
     _check(bkt % bk == 0 and 0 <= pos < bkt // bk, f"pos {pos} outside the cache")
+    _check(bkt % 8 == 0, f"cache width {bkt} is not a multiple of 8")
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         _check(t.shape == (L, D, bkt) and t.dtype == torch.bfloat16,
                f"{name} must be bf16 ({L}, {D}, {bkt}), got {t.dtype} {tuple(t.shape)}")
@@ -298,6 +301,7 @@ def fused_decode_step(
     s_pad = sx // n_seq
     s_audio = s_pad if s_audio is None else s_audio
     _check(1 <= s_audio <= s_pad, f"s_audio {s_audio} outside the window {s_pad}")
+    _check(s_audio <= MAX_AUDIO, f"s_audio {s_audio} above {MAX_AUDIO}")
     xa_dtype = torch.int8 if xa_s is not None else torch.bfloat16
     for name, t in (("xa_k", xa_k), ("xa_v", xa_v)):
         _check(t.shape == (L, H, 64, sx) and t.dtype == xa_dtype,

@@ -149,7 +149,7 @@ def fused_gpt_step(cfg: GPTConfig, packed: PackedGPT, x_emb, k_cache, v_cache, s
     pos·bk + row (the TPU kernel aliases them the same way).
 
     CUDA tensors run ``csrc/fused_gpt.cu`` (bf16 caches, int8 weights, head
-    dim 64, D a multiple of 64, bk ≤ 32); CPU tensors run
+    dim 64, D a multiple of 64, bk ≤ 32, bk·T a multiple of 8); CPU tensors run
     ``fused_gpt_step_plain``."""
     if x_emb.device.type == "cpu":
         return fused_gpt_step_plain(cfg, packed, x_emb, k_cache, v_cache, sel, pos)
@@ -164,6 +164,7 @@ def fused_gpt_step(cfg: GPTConfig, packed: PackedGPT, x_emb, k_cache, v_cache, s
     _check(1 <= bk <= MAX_ROWS, f"bk={bk} must be 1..{MAX_ROWS}")
     bkt = k_cache.shape[-1]
     _check(bkt % bk == 0 and 0 <= pos < bkt // bk, f"pos {pos} outside the cache")
+    _check(bkt % 8 == 0, f"cache width {bkt} is not a multiple of 8")
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         _check(t.shape == (L, D, bkt) and t.dtype == torch.bfloat16,
                f"{name} must be bf16 ({L}, {D}, {bkt}), got {t.dtype} {tuple(t.shape)}")
