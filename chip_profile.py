@@ -6,10 +6,15 @@ Run from the repository root, with one card visible:
 
     python3 chip_profile.py [--out build/profile]
     python3 chip_profile.py --parent DIR [--out build/profile]
+    python3 chip_profile.py --heads [--parent DIR]
 
 Prints, each on its own line, with the card's name and power limit first:
 
-0. one fused decode step's device time by kernel kind (the five int8
+0. the two vocabulary heads' device time per call by kernel, from the
+   kernel intervals of ten calls under ``torch.profiler``: the Whisper
+   logits head at large-v2's shapes (BK 5 and 20, int8 and bf16 table,
+   plain and grammar mode, k 6) beside its bound, and the XTTS sampling
+   head at XTTS v2's width (``--heads`` stops here); then one fused decode step's device time by kernel kind (the five int8
    products, self- and cross-attention, told apart by their launch order
    in a layer) from the kernel intervals of five steps under
    ``torch.profiler``, at BK 5 over a 128-position cache and at BK 20 over
@@ -46,11 +51,13 @@ Prints, each on its own line, with the card's name and power limit first:
 
 ``--parent DIR`` compares this tree with another checkout of the repo
 instead: it loads that checkout's kernel library, built from its own
-sources (``chip_smoke._parent_library``), breaks both trees' steps down as
-in part 0 on the same inputs, then times part 2's and 3's unprofiled
-requests on the fused path in turns parent / change / change / parent, the
-parent's library standing in for this tree's behind the same wrappers
-(the kernels' C interfaces are the same).
+sources (``chip_smoke._parent_library``), breaks both trees' heads and
+steps down as in part 0 on the same inputs, then times part 2's and 3's
+unprofiled requests on the fused path, and part 4's streams both ways, in
+turns parent / change / change / parent, the parent's library standing in
+for this tree's behind the same wrappers (the kernels' C interfaces are
+the same; a C function may take one more trailing argument, which an
+older library ignores).
 
 Each path's operator table by device time goes to
 ``<out>/profile_ops_<path>.txt``. The last line is one JSON object with
@@ -62,6 +69,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -229,6 +237,84 @@ def step_breakdown(torch, dev, cfg, packed, trees, steps=5):
     return out
 
 
+def _kernel_ms_by_name(torch, fn, calls=10):
+    """{kernel name: device ms per fn() call} from the kernel intervals of
+    ``calls`` calls under ``torch.profiler`` (template arguments and
+    namespaces dropped from the names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel" and e.get("ph") == "X":
+            name = re.sub(r"^void ", "", e["name"].replace("(anonymous namespace)::", ""))
+            name = re.match(r"[\w:]+", name).group()
+            out[name] = out.get(name, 0.0) + e["dur"] / 1000.0 / calls
+    return out
+
+
+def head_breakdown(torch, dev, cfg, trees):
+    """Both vocabulary heads' device time per call by kernel, for each tree
+    in ``trees`` (label → (kernel library, check)): the logits head at
+    every ``chip_smoke.HEAD_CASES`` case on large-v2's shapes, beside its
+    bound, and the XTTS sampling head at XTTS v2's width with the
+    production knobs. Each call's result is held to the plain version
+    first."""
+    from chip_smoke import (
+        gpt_head_case,
+        head_agrees,
+        head_bound,
+        head_case,
+        HEAD_CASES,
+        lib_gpt_head,
+        lib_logits_head,
+    )
+    from wis_tpu_torch.models.xtts.gpt import GPTConfig
+    from wis_tpu_torch.ops.fused_gpt_head import fused_gpt_head_plain
+    from wis_tpu_torch.ops.fused_logits import fused_logits_topk_plain
+
+    out = {}
+
+    def report(name, label, by_kernel, bound=None):
+        total = sum(by_kernel.values())
+        print(f"{name} [{label}]: {total:.4f} ms per call"
+              + (f" (bound {bound[0]:.4f} ms, {bound[1]})" if bound else "") + "; "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in by_kernel.items()))
+        out[f"{name} [{label}]"] = dict(total_ms=total, by_kernel_ms=by_kernel)
+
+    for bk, int8, grammar in HEAD_CASES:
+        case = head_case(torch, dev, cfg, bk, int8, grammar)
+        want = fused_logits_topk_plain(*case["args"], **case["kw"])
+        for label, (lib, check) in trees.items():
+            fn = lib_logits_head(torch, lib, check, case)
+            if not head_agrees(fn(), want, case["exact"]):
+                raise AssertionError(f"{case['name']} [{label}]: disagrees with plain")
+            report(case["name"], label, _kernel_ms_by_name(torch, fn),
+                   head_bound(cfg, bk, int8, grammar))
+    g = GPTConfig()
+    inputs = gpt_head_case(torch, dev, g)
+    want = fused_gpt_head_plain(*inputs, cfg=g)
+    for label, (lib, check) in trees.items():
+        fn = lib_gpt_head(torch, lib, check, g, inputs)
+        got = fn()
+        if not (int(got[0]) == int(want[0]) and torch.equal(got[2] > -1e29, want[2] > -1e29)):
+            raise AssertionError(f"fused_gpt_head [{label}]: disagrees with plain")
+        report(f"fused_gpt_head D={g.d_model} V_pad={inputs[2].shape[-1]}", label,
+               _kernel_ms_by_name(torch, fn))
+    return out
+
+
 def request_turns(torch, engine, settings, parent_lib, out_dir):
     """Part 2's and 3's unprofiled request latencies on the fused path, in
     turns parent / change / change / parent: for a parent turn the
@@ -250,6 +336,35 @@ def request_turns(torch, engine, settings, parent_lib, out_dir):
         finally:
             _build._lib = own
         out.update({f"turn{i}_{label}_{k}": v for k, v in part.items()})
+    return out
+
+
+def stream_turns(torch, parent_lib, reps=3):
+    """The XTTS stream both ways — the default path (fused step, plain
+    epilogue) and the fused sampling head — in turns parent / change /
+    change / parent as ``request_turns``: per turn and path the medians of
+    ``reps`` streams' first chunk and total (ms). Keys are prefixed
+    ``turn<i>_<tree>_xtts_<path>_``."""
+    from wis_tpu_torch.models.xtts.model import XTTSModel
+    from wis_tpu_torch.ops import _build
+
+    own = _build.kernels()
+    model = XTTSModel("cuda")
+    out = {}
+    for i, (label, lib) in enumerate((("parent", parent_lib), ("change", own),
+                                      ("change", own), ("parent", parent_lib))):
+        _build._lib = lib
+        try:
+            for path, head in (("default", False), ("fused_head", True)):
+                model.fused_head = head
+                _stream(torch, model)  # warm-up
+                runs = [_stream(torch, model) for _ in range(reps)]
+                key = f"turn{i}_{label}_xtts_{path}"
+                out[f"{key}_first_chunk_ms"] = statistics.median(r[0] for r in runs)
+                out[f"{key}_total_ms"] = statistics.median(r[1] for r in runs)
+                out[f"{key}_total_ms_all"] = [r[1] for r in runs]
+        finally:
+            _build._lib = own
     return out
 
 
@@ -451,6 +566,8 @@ def main() -> int:
     ap.add_argument("--parent", help="another checkout of this repo: compare its kernels "
                     "with this tree's (the step by kernel kind, then the requests in turns) "
                     "instead of the full profile")
+    ap.add_argument("--heads", action="store_true", help="only the two vocabulary heads by "
+                    "kernel (with --parent, both trees'), no model load")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device available", file=sys.stderr)
@@ -464,11 +581,6 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    settings = APISettings(whisper_model_default="large", beam_size=5,
-                           long_beam_size=5, quant="int8")
-    engine = WhisperEngine(ModelRegistry(settings, "cuda"))
-    loaded = engine.registry.get("large")
-
     result = {"device": smi}
 
     def report(part, prefix=""):
@@ -477,15 +589,25 @@ def main() -> int:
             result[prefix + key] = val
 
     from chip_smoke import _parent_library
+    from wis_tpu_torch.models.whisper.config import WHISPER_CONFIGS
     from wis_tpu_torch.ops import _build
 
     parent = _parent_library(args.parent) if args.parent else None
     trees = {"parent": parent} if parent else {}
     trees["change" if parent else "tree"] = (_build.kernels(), _build.check)
+    result.update(head_breakdown(torch, torch.device("cuda"), WHISPER_CONFIGS["large"], trees))
+    if args.heads:
+        print(json.dumps(result))
+        return 0
+    settings = APISettings(whisper_model_default="large", beam_size=5,
+                           long_beam_size=5, quant="int8")
+    engine = WhisperEngine(ModelRegistry(settings, "cuda"))
+    loaded = engine.registry.get("large")
     report(step_breakdown(torch, engine.device, loaded.cfg, engine._packed_decoder(loaded),
                           trees))
     if parent:
         report(request_turns(torch, engine, settings, parent[0], args.out), "fused_")
+        report(stream_turns(torch, parent[0]))
         print(json.dumps(result))
         return 0
 

@@ -10,8 +10,9 @@ the script also builds that checkout's kernels and times them beside this
 tree's on the same inputs, in turns parent / change / change / parent,
 each side held to its plain version first: in phase 3 ``int8_matmul``,
 ``layer_norm`` (beside ``F.layer_norm``) and the flash kernels, in phase 4
-the fused decode step at each non-trap case, in phase 7 the GPT step at
-its three cache buckets.
+the fused decode step at each non-trap case and the fused logits head at
+BK 5 and 20, int8 and bf16 table, plain and grammar mode, in phase 7 the
+GPT step at its three cache buckets and the GPT sampling head.
 
 Phases, each printed on its own lines; any failure raises and the script
 exits non-zero without printing a result:
@@ -44,7 +45,9 @@ exits non-zero without printing a result:
    inputs and on trap inputs that a kernel reading a masked column or
    another window's cross-KV, ignoring the suppress or a grammar mask,
    letting a masked timestamp region add to its sum, or breaking a tie or
-   the min_ts floor the wrong way fails; time them;
+   the min_ts floor the wrong way fails; time the head at BK 5 and 20 (one
+   window's beams and the long-form groups of four windows), int8 and
+   bf16 table, plain and grammar mode, beside its plain version and bound;
 5. serve every ASR request kind through the engine, every kernel launch
    counter set to 0 just before each and read just after, each kind's
    launches checked: a large-v2 beam-5 request on the eager decoder
@@ -610,7 +613,7 @@ HEAD_ATOL = 0.05
 
 def check_fused_head(torch, dev, cfg):
     """The fused head against its plain version at V = 51865, on a
-    numpy-seeded N(0, 1) table. The seed is one whose top-(k+1) gaps all
+    numpy-seeded N(0, 1) table; returns the largest value error. The seed is one whose top-(k+1) gaps all
     clear twice the tolerance in both tables (checked below), so equal ids
     are a real check. Traps: each row's two largest raw logits are
     suppressed, and a duplicated embedding row makes row 0's best id tie
@@ -638,7 +641,7 @@ def check_fused_head(torch, dev, cfg):
     while float(sup[low]) != 0.0:  # an id neither suppressed nor trapped
         low -= 1
     emb[low] = emb[best]  # trap: row 0's best id now ties with a lower id
-    rows = {}
+    worst = 0.0
     for int8 in (False, True):
         table = quantize_rows(emb) if int8 else emb
         for full in (False, True):
@@ -662,19 +665,174 @@ def check_fused_head(torch, dev, cfg):
                 raise AssertionError(f"{case}: the seed's decisions are closer than the tolerance")
             if not (ids_equal and err <= HEAD_ATOL and lse_err <= HEAD_ATOL and tie and hidden):
                 raise AssertionError(f"{case}: kernel disagrees with plain")
-            if full:
-                continue
-            ms = _median_ms(lambda: fused_logits_topk(x, ln_g, ln_b, table, sup, k=k))
-            plain_ms = _median_ms(
-                lambda: fused_logits_topk_plain(x, ln_g, ln_b, table, sup, k=k), reps=5, replays=5)
-            n_bytes = (V * D * (1 if int8 else 2) + (V * 4 if int8 else 0) + V * 4
-                       + bk * D * 4 + 2 * D * 4 + bk * (k * 12 + 4))
-            bound_ms, bound_by = _bound(n_bytes, 2 * bk * V * D, BF16_FLOPS)
-            print(f"{case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms ({bound_by})")
-            rows[int8] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-    return rows
+            worst = max(worst, err)
+    return worst
+
+
+#: the logits head's timed cases (BK, int8 table, grammar mode) at k 6:
+#: one window's five beams, and the four windows × five beams of the 180 s
+#: long-form groups and the coalesced batch of four
+HEAD_CASES = tuple((bk, int8, gr) for bk in (5, 20) for int8 in (True, False)
+                   for gr in (False, True))
+HEAD_K = 6
+
+
+def head_case(torch, dev, cfg, bk, int8, grammar):
+    """One timed head call at large-v2's shapes: {"args": (x, g, b, table,
+    sup), "kw": wrapper keywords, "exact": the logits are exact (grammar
+    mode, grammar_head_case's inputs), "name"}."""
+    from wis_tpu_torch.models.whisper.tokenizer import EOT, layout_for_vocab
+    from wis_tpu_torch.ops.quant import quantize_rows
+
+    V, D = cfg.n_vocab, cfg.n_text_state
+    kw = dict(k=HEAD_K)
+    if grammar:
+        ts_base = layout_for_vocab(V).timestamp_base
+        x, g, b, emb, sup, ts = (torch.from_numpy(a).to(dev) for a in
+                                 grammar_head_case(bk, D, V, ts_base, EOT, seed=bk))
+        kw.update(ts_state=ts, ts_base=ts_base, eot=EOT)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(bk)
+        x = torch.randn((bk, D), generator=gen, device=dev) * 2 + 0.3
+        g = 1 + 0.1 * torch.randn(D, generator=gen, device=dev)
+        b = 0.1 * torch.randn(D, generator=gen, device=dev)
+        emb = torch.randn((V, D), generator=gen, device=dev)
+        sup = torch.zeros(V, device=dev)
+    emb = emb.to(torch.bfloat16)
+    table = quantize_rows(emb) if int8 else emb
+    name = (f"fused_logits_topk{'(grammar)' if grammar else ''} V={V} BK={bk} k={HEAD_K} emb "
+            f"{'int8' if int8 else 'bf16'}")
+    return dict(args=(x, g, b, table, sup), kw=kw, exact=grammar, name=name)
+
+
+def head_bound(cfg, bk, int8, grammar):
+    """(ms, "bytes" or "operations") of one head call: the table (and its
+    row scales), sup, x, the LN rows and ts_state read once, the candidates
+    and lse written once; 2·BK·V·D operations at the bf16 peak."""
+    V, D = cfg.n_vocab, cfg.n_text_state
+    n_bytes = (V * D * (1 if int8 else 2) + (V * 4 if int8 else 0) + V * 4 + bk * D * 4
+               + 2 * D * 4 + (bk * 16 if grammar else 0) + bk * (HEAD_K * 12 + 4))
+    return _bound(n_bytes, 2 * bk * V * D, BF16_FLOPS)
+
+
+def head_agrees(got, want, exact):
+    """A head's result against the plain version's: on exact inputs ids and
+    values equal and lse within 1e-5 relative; else values and lse within
+    HEAD_ATOL (random tables hold near-ties, so ids are not compared)."""
+    import torch
+
+    if exact:
+        lse_rel = float(((got[2] - want[2]).abs() / want[2].abs().clamp_min(1.0)).max())
+        return torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]) and lse_rel <= 1e-5
+    return (float((got[0] - want[0]).abs().max()) <= HEAD_ATOL
+            and float((got[2] - want[2]).abs().max()) <= HEAD_ATOL)
+
+
+def time_heads(torch, dev, cfg):
+    """The head at every HEAD_CASES case through its wrapper, held to the
+    plain version (``head_agrees``), then timed beside the plain version
+    and its bound → {(bk, int8, grammar): row numbers}."""
+    from wis_tpu_torch.ops.fused_logits import fused_logits_topk, fused_logits_topk_plain
+
+    out = {}
+    for bk, int8, grammar in HEAD_CASES:
+        case = head_case(torch, dev, cfg, bk, int8, grammar)
+        args, kw = case["args"], case["kw"]
+        got = fused_logits_topk(*args, **kw)
+        want = fused_logits_topk_plain(*args, **kw)
+        if not head_agrees(got, want, case["exact"]):
+            raise AssertionError(f"{case['name']}: kernel disagrees with plain")
+        err = float((got[0] - want[0]).abs().max())
+        ms = _median_ms(lambda: fused_logits_topk(*args, **kw))
+        plain_ms = _median_ms(lambda: fused_logits_topk_plain(*args, **kw), reps=5, replays=5)
+        bound_ms, bound_by = head_bound(cfg, bk, int8, grammar)
+        print(f"{case['name']}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); kernel/bound {ms / bound_ms:.2f}")
+        out[(bk, int8, grammar)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return out
+
+
+def lib_logits_head(torch, lib, check, case):
+    """fn() → (val, tok, lse): one call of ``lib``'s ``wis_fused_logits_topk``
+    (this tree's library or another checkout's) on ``head_case``'s inputs,
+    as the wrapper calls it, with the library's own workspace size. A
+    library whose C function takes the split counter (20 arguments) gets
+    the wrapper's; an older one (19) is called without it."""
+    from wis_tpu_torch.ops.quant import _split_counters
+
+    x, g, b, table, sup = case["args"]
+    kw = case["kw"]
+    dev, (bk, d) = x.device, x.shape
+    int8 = isinstance(table, dict)
+    q, s = (table["q"], table["s"]) if int8 else (table, None)
+    v, k, ts = q.shape[0], kw["k"], kw.get("ts_state")
+    ln = torch.stack([g, b]).float()
+    ws = torch.empty(lib.wis_fused_logits_workspace_bytes(bk, v, k, int(ts is not None)),
+                     dtype=torch.uint8, device=dev)
+    val = torch.empty((bk, k), dtype=torch.float32, device=dev)
+    tok = torch.empty((bk, k), dtype=torch.int64, device=dev)
+    lse = torch.empty((bk, 1), dtype=torch.float32, device=dev)
+    sem = (_split_counters(dev, 1).data_ptr(),) if len(lib.wis_fused_logits_topk.argtypes) == 20 else ()
+
+    def fn():
+        check(lib.wis_fused_logits_topk(
+            x.data_ptr(), ln.data_ptr(), q.data_ptr(), s.data_ptr() if int8 else None,
+            sup.data_ptr(), ts.data_ptr() if ts is not None else None, bk, d, v, k,
+            int(kw.get("full_lse", False)), int(int8), int(kw.get("ts_base", 0)),
+            int(kw.get("eot", 0)), ws.data_ptr(), val.data_ptr(), tok.data_ptr(),
+            lse.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, *sem),
+            "fused_logits_topk")
+        return val, tok, lse
+
+    return fn
+
+
+def gpt_head_case(torch, dev, cfg, head_packed=None):
+    """The XTTS head's timed call at the model's width with the production
+    knobs (sampled): (x, ln4, head_w, head_b, hist, gum, knobs). Without
+    ``head_packed`` a random head of the model's shape."""
+    from wis_tpu_torch.ops.fused_gpt_head import v_padded
+
+    D, vp = cfg.d_model, v_padded(cfg.n_audio_vocab)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((1, D), generator=gen, device=dev) * 2 + 0.3
+    ln4 = torch.cat([1 + 0.1 * torch.randn((1, D), generator=gen, device=dev),
+                     0.1 * torch.randn((1, D), generator=gen, device=dev)] * 2)
+    if head_packed is None:
+        head_w = torch.randn((D, vp), generator=gen, device=dev) * D ** -0.5
+        head_w[:, cfg.n_audio_vocab:] = 0
+        head_w, head_b = head_w.to(torch.bfloat16), torch.zeros((1, vp), device=dev)
+    else:
+        head_w, head_b = head_packed[1], head_packed[2]
+    hist = torch.zeros((1, vp), device=dev)
+    hist[0, :40] = 1.0
+    u = torch.rand((1, vp), generator=gen, device=dev).clamp_min(1e-6)
+    gum = -torch.log(-torch.log(u))
+    knobs = torch.tensor([[0.1, 50, 0.8, 7.0, 0.0, 1.0, 0.0, 0.0]], device=dev)
+    return x, ln4, head_w, head_b, hist, gum, knobs
+
+
+def lib_gpt_head(torch, lib, check, cfg, inputs):
+    """fn() → (tok, hidden, logits): one call of ``lib``'s
+    ``wis_fused_gpt_head`` on ``gpt_head_case``'s inputs, as the wrapper
+    calls it."""
+    x, ln4, head_w, head_b, hist, gum, knobs = inputs
+    dev, d, vp = x.device, cfg.d_model, head_w.shape[-1]
+    tok = torch.empty((1, 1), dtype=torch.int32, device=dev)
+    hidden = torch.empty((1, d), dtype=torch.float32, device=dev)
+    logits = torch.empty((1, vp), dtype=torch.float32, device=dev)
+    raw = torch.empty((1, vp), dtype=torch.float32, device=dev)
+
+    def fn():
+        check(lib.wis_fused_gpt_head(
+            x.data_ptr(), ln4.data_ptr(), head_w.data_ptr(), head_b.data_ptr(), hist.data_ptr(),
+            gum.data_ptr(), knobs.data_ptr(), tok.data_ptr(), hidden.data_ptr(),
+            logits.data_ptr(), raw.data_ptr(), d, cfg.n_audio_vocab, vp, cfg.stop_audio_token,
+            torch.cuda.current_stream(dev).cuda_stream), "fused_gpt_head")
+        return tok, hidden, logits
+
+    return fn
 
 
 #: int8_matmul shapes (M, K, N): one window's cross-KV projection and a
@@ -861,13 +1019,23 @@ def compare_with_parent(torch, dev, parent):
 def _turns_rel(torch, name, parent_fn, change_fn, want, tol):
     """Both sides held to the plain result ``want`` in relative norm (and
     finite), then timed parent / change / change / parent."""
+    def agrees(got):
+        err = float((got.float() - want.float()).norm() / want.float().norm())
+        return err <= tol and bool(torch.isfinite(got).all())
+
+    return _turns_by(torch, name, parent_fn, change_fn, agrees)
+
+
+def _turns_by(torch, name, parent_fn, change_fn, agrees, reps=5, replays=7):
+    """Both sides' results held by ``agrees`` (to their plain version),
+    then timed parent / change / change / parent."""
     for label, fn in (("parent", parent_fn), ("change", change_fn)):
         got = fn()
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).norm() / want.float().norm())
-        if not (err <= tol and bool(torch.isfinite(got).all())):
-            raise AssertionError(f"{name}: the {label} kernel disagrees with plain ({err:.3e})")
-    t = [_median_ms(f, reps=5, replays=7) for f in (parent_fn, change_fn, change_fn, parent_fn)]
+        if not agrees(got):
+            raise AssertionError(f"{name}: the {label} kernel disagrees with plain")
+    t = [_median_ms(f, reps=reps, replays=replays)
+         for f in (parent_fn, change_fn, change_fn, parent_fn)]
     ratio = min(t[1], t[2]) / min(t[0], t[3])
     print(f"{name}: parent {t[0]:.4f}, change {t[1]:.4f}, change {t[2]:.4f}, parent "
           f"{t[3]:.4f} ms; change/parent {ratio:.3f}"
@@ -896,6 +1064,50 @@ def compare_steps_with_parent(torch, dev, parent, cfg, packed):
             torch, name, lib_decode_step(torch, lib, check, cfg, packed, inp),
             lib_decode_step(torch, mine, _build.check, cfg, packed, inp), want, STEP_REL_NORM)
     return out
+
+
+def compare_heads_with_parent(torch, dev, parent, cfg):
+    """Row 5 against the parent checkout's head at every ``HEAD_CASES``
+    case, both sides through their C functions (``lib_logits_head``), each
+    held to the plain version first (``head_agrees``)."""
+    from wis_tpu_torch.ops import _build
+    from wis_tpu_torch.ops.fused_logits import fused_logits_topk_plain
+
+    lib, check = _parent_library(parent)
+    mine = _build_lib()
+    out = {}
+    for bk, int8, grammar in HEAD_CASES:
+        case = head_case(torch, dev, cfg, bk, int8, grammar)
+        want = fused_logits_topk_plain(*case["args"], **case["kw"])
+        out[(bk, int8, grammar)] = _turns_by(
+            torch, case["name"], lib_logits_head(torch, lib, check, case),
+            lib_logits_head(torch, mine, _build.check, case),
+            lambda got: head_agrees(got, want, case["exact"]), reps=20, replays=15)
+    return out
+
+
+def compare_gpt_head_with_parent(torch, dev, parent, cfg, head_packed):
+    """Row 8 against the parent checkout's head on the model's head with
+    the production knobs (``gpt_head_case``): each side's token and kept
+    set equal to the plain version's, its kept values within
+    GPT_HEAD_REL."""
+    from wis_tpu_torch.ops import _build
+    from wis_tpu_torch.ops.fused_gpt_head import fused_gpt_head_plain
+
+    lib, check = _parent_library(parent)
+    inputs = gpt_head_case(torch, dev, cfg, head_packed)
+    tp, _, lp = fused_gpt_head_plain(*inputs, cfg=cfg)
+    kept = lp > -1e29
+
+    def agrees(got):
+        return (int(got[0]) == int(tp) and torch.equal(got[2] > -1e29, kept)
+                and bool((got[2][kept] - lp[kept]).abs().le(
+                    GPT_HEAD_REL * lp[kept].abs() + 1e-6).all()))
+
+    name = f"fused_gpt_head D={cfg.d_model} V_pad={inputs[2].shape[-1]} production knobs"
+    return _turns_by(torch, name, lib_gpt_head(torch, lib, check, cfg, inputs),
+                     lib_gpt_head(torch, _build_lib(), _build.check, cfg, inputs), agrees,
+                     reps=20, replays=15)
 
 
 def compare_gpt_steps_with_parent(torch, dev, parent, cfg, packed, t_full):
@@ -942,7 +1154,8 @@ def _host_us(torch, fn, calls=200):
 
 
 def print_ptxas(names=("int8_matmul_kernel", "flash_wgmma_kernel", "int8_product_kernel",
-                       "self_attention_kernel", "cross_attention_kernel", "layer_norm_kernel")):
+                       "self_attention_kernel", "cross_attention_kernel", "layer_norm_kernel",
+                       "logits_topk_kernel", "gpt_head_kernel")):
     """Registers and spills of the kernels named, one line per instance,
     from the build's -Xptxas -v output."""
     from wis_tpu_torch.ops import _build
@@ -1035,14 +1248,13 @@ def check_grammar_head(torch, dev, cfg):
     equal, lse within 1e-5 relative (f32 sums in another order), and every
     grammar decision held — so a kernel that ignores a mask, lets a masked
     region add to the timestamp sum, or breaks the tie or the min_ts floor
-    the wrong way fails. Timed at BK=5 with the int8 table."""
+    the wrong way fails. Returns the largest value error (0 here)."""
     from wis_tpu_torch.models.whisper.tokenizer import EOT, layout_for_vocab
     from wis_tpu_torch.ops.fused_logits import fused_logits_topk, fused_logits_topk_plain
     from wis_tpu_torch.ops.quant import quantize_rows
 
     V, D, k = cfg.n_vocab, cfg.n_text_state, 6
     ts_base = layout_for_vocab(V).timestamp_base
-    row = None
     for bk in (5, 20):
         x, g, b, emb, sup, ts = (torch.from_numpy(a).to(dev) for a in
                                  grammar_head_case(bk, D, V, ts_base, EOT, seed=bk))
@@ -1064,19 +1276,7 @@ def check_grammar_head(torch, dev, cfg):
                       + ", ".join(f"{rule} {ok}" for rule, ok in held.items()))
                 if not (ids_equal and err == 0.0 and lse_rel <= 1e-5 and all(held.values())):
                     raise AssertionError(f"{case}: kernel disagrees with plain")
-                if bk != 5 or not int8 or full:
-                    continue
-                ms = _median_ms(lambda: fused_logits_topk(x, g, b, table, sup, **kw))
-                plain_ms = _median_ms(lambda: fused_logits_topk_plain(x, g, b, table, sup, **kw),
-                                      reps=5, replays=5)
-                n_bytes = (V * D + V * 4 + V * 4 + bk * D * 4 + 2 * D * 4 + bk * 16
-                           + bk * (k * 12 + 4))
-                bound_ms, bound_by = _bound(n_bytes, 2 * bk * V * D, BF16_FLOPS)
-                print(f"{case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                      f"bound {bound_ms:.4f} ms ({bound_by})")
-                row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, library_ms=None)
-    return row
+    return 0.0
 
 
 #: the grammar head's boosted ids (grammar_head_case): four timestamps
@@ -2095,8 +2295,13 @@ def main() -> int:
     step = check_fused_step(torch, dev, loaded.cfg, packed)
     if args.parent:
         compare_steps_with_parent(torch, dev, args.parent, loaded.cfg, packed)
-    head = check_fused_head(torch, dev, loaded.cfg)
-    grammar = check_grammar_head(torch, dev, loaded.cfg)
+    head_err = check_fused_head(torch, dev, loaded.cfg)
+    grammar_err = check_grammar_head(torch, dev, loaded.cfg)
+    heads = time_heads(torch, dev, loaded.cfg)
+    for case, err in (((5, True, False), head_err), ((5, True, True), grammar_err)):
+        heads[case]["max_abs_err"] = max(heads[case]["max_abs_err"], err)
+    if args.parent:
+        compare_heads_with_parent(torch, dev, args.parent, loaded.cfg)
 
     counters = (layer_norm_cuda, flash_attention_packed, flash_attention, int8_matmul,
                 ancestry_attention, fused_decode_step, fused_logits_topk, GrammarLaunches())
@@ -2118,6 +2323,9 @@ def main() -> int:
         compare_gpt_steps_with_parent(torch, dev, args.parent, xtts.cfg.gpt, xtts.gpt_packed,
                                       t_full)
     gpt_head = check_fused_gpt_head(torch, dev, xtts.cfg.gpt, xtts.gpt_head_packed)
+    if args.parent:
+        compare_gpt_head_with_parent(torch, dev, args.parent, xtts.cfg.gpt,
+                                     xtts.gpt_head_packed)
     time_xtts_epilogue(torch, dev, xtts)
     tts_counters = (fused_gpt_step, fused_gpt_head)
     stream_xtts(torch, dev, xtts, tts_counters, "warm-up", max_chunks=2)
@@ -2150,7 +2358,7 @@ def main() -> int:
         dict(name="fused_decode_step", source="wis_tpu_torch/csrc/fused_decode.cu",
              replaces="wis_tpu/ops/fused_decode.py:184", **step[(128, 1)]),
         dict(name="fused_logits_topk", source="wis_tpu_torch/csrc/fused_logits.cu",
-             replaces="wis_tpu/ops/fused_logits.py:48", **head[True]),
+             replaces="wis_tpu/ops/fused_logits.py:48", **heads[(5, True, False)]),
         dict(name="fused_gpt_step", source="wis_tpu_torch/csrc/fused_gpt.cu",
              replaces="wis_tpu/ops/fused_gpt.py:122", **gpt_step[t_full]),
         dict(name="fused_gpt_head", source="wis_tpu_torch/csrc/fused_gpt_head.cu",
@@ -2160,22 +2368,26 @@ def main() -> int:
         dict(name="ancestry_attention", source="wis_tpu_torch/csrc/ancestry_attention.cu",
              replaces="wis_tpu/ops/decode_attn.py:83", **anc[5]),
         dict(name="fused_logits_topk(grammar)", source="wis_tpu_torch/csrc/fused_logits.cu",
-             replaces="wis_tpu/ops/fused_logits.py:48", **grammar),
+             replaces="wis_tpu/ops/fused_logits.py:48", **heads[(5, True, True)]),
         dict(name="flash_attention", source="wis_tpu_torch/csrc/flash_attention.cu",
              replaces="wis_tpu/ops/flash.py:193", **hm),
+        dict(name="fused_logits_topk(BK=20)", source="wis_tpu_torch/csrc/fused_logits.cu",
+             replaces="wis_tpu/ops/fused_logits.py:48", **heads[(20, True, False)]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the whisper rows and int8_matmul count the fused ASR requests (the
     # main path); ancestry_attention the eager request, the grammar head the
     # timestamp request, head-major flash the WIS_NO_PACKED_FLASH request;
-    # the GPT step the default XTTS stream, the GPT head the fused-head stream
+    # the GPT step the default XTTS stream, the GPT head the fused-head
+    # stream, the head at BK 20 the 180 s long-form request
     fused = served["fused"]
     launches = [fused["layer_norm_cuda"], fused["flash_attention_packed"],
                 fused["fused_decode_step"], fused["fused_logits_topk"], step_n[0], head_n[1],
                 fused["int8_matmul"], served["eager"]["ancestry_attention"],
                 served["timestamps"]["fused_logits_topk(grammar)"],
-                switched_n["WIS_NO_PACKED_FLASH"]["flash_attention"]]
+                switched_n["WIS_NO_PACKED_FLASH"]["flash_attention"],
+                served["long"]["fused_logits_topk"]]
     for row, n in zip(rows, launches):
         row.update(route="cuda", launches=n)
     print(json.dumps({"kernels": [{key: row[key] for key in keys} for row in rows]}))

@@ -872,6 +872,182 @@ def test_fused_head_grammar_matches_plain(dev, bk, int8):
         assert all(held.values()), held
 
 
+def _exact_head_inputs(dev, bk, v, d=128, seed=0, live=None):
+    """Head inputs whose logits are exact in any summation order: x rows ±1
+    patterns of zero mean (the LayerNorm, γ = 1 and β = 0, returns them
+    exactly in bf16), the table multiples of 1/8. Row 0's best ids are 63
+    and 64, equal rows across a 64-row tile boundary; row 1's best are 5
+    and v − 1, equal rows in different blocks. ``live``: only these ids
+    unsuppressed. → (x, g, b, emb bf16, sup)."""
+    rng = np.random.default_rng(seed)
+    x = np.stack([np.where(rng.permutation(d) % 2 == 0, 1.0, -1.0) for _ in range(bk)])
+    emb = np.clip(np.round(rng.standard_normal((v, d)) * 8), -32, 32) / 8
+    emb[[63, 64]] = x[0] * 0.5
+    if bk > 1:
+        emb[[5, v - 1]] = x[1] * 0.5
+    sup = np.zeros(v, np.float32)
+    sup[rng.choice(np.arange(100, v - 1), min(200, v // 10), replace=False)] = -1e30
+    if live is not None:
+        sup[:] = -1e30
+        sup[list(live)] = 0.0
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    return (f32(x), f32(np.ones(d)), f32(np.zeros(d)), f32(emb).to(torch.bfloat16), f32(sup))
+
+
+def _assert_head_exact(got, want):
+    assert torch.equal(got[1], want[1]), (got[1], want[1])
+    assert torch.equal(got[0], want[0])
+    assert torch.allclose(got[2], want[2], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "bk,k,v",
+    [(1, 1, 51865), (5, 6, 51865), (8, 8, 51866), (20, 6, 51865), (32, 8, 1000),
+     (20, 1, 51866), (5, 8, 1000), (32, 6, 51866)],
+)
+@pytest.mark.parametrize("int8", [False, True])
+def test_fused_head_exact_at_every_shape(dev, bk, k, v, int8):
+    """BK 1-32, k 1-8, both vocabularies and one (1000) that ends inside a
+    64-row tile, both tables, lse over the suppressed and the raw logits:
+    on exact logits ids and values equal the plain version's and lse is
+    within 1e-5; the ties across a tile boundary and across blocks go to
+    the lower id; two calls give the same bits."""
+    from wis_tpu_torch.ops.fused_logits import fused_logits_topk, fused_logits_topk_plain
+    from wis_tpu_torch.ops.quant import quantize_rows
+
+    x, g, b, emb, sup = _exact_head_inputs(dev, bk, v, seed=bk + k + v)
+    table = quantize_rows(emb) if int8 else emb
+    for full in (False, True):
+        before = fused_logits_topk.launches
+        got = fused_logits_topk(x, g, b, table, sup, k=k, full_lse=full)
+        again = fused_logits_topk(x, g, b, table, sup, k=k, full_lse=full)
+        want = fused_logits_topk_plain(x, g, b, table, sup, k=k, full_lse=full)
+        torch.cuda.synchronize()
+        assert fused_logits_topk.launches == before + 2
+        _assert_head_exact(got, want)
+        assert got[1][0, :2].tolist() == [63, 64][:k]
+        if bk > 1 and k > 1:
+            assert got[1][1, :2].tolist() == [5, v - 1]
+        for a, c in zip(got, again):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("v", [1000, 51865])
+@pytest.mark.parametrize("int8", [False, True])
+def test_fused_head_fills_with_masked_columns(dev, v, int8):
+    """Fewer live columns than k: the rest of each row's candidates are
+    suppressed columns at NEG, the lowest ids first, as the plain
+    version's stable sort gives them."""
+    from wis_tpu_torch.ops.fused_logits import fused_logits_topk, fused_logits_topk_plain
+    from wis_tpu_torch.ops.quant import quantize_rows
+
+    x, g, b, emb, sup = _exact_head_inputs(dev, 5, v, live=(700, 3, 999))
+    table = quantize_rows(emb) if int8 else emb
+    got = fused_logits_topk(x, g, b, table, sup, k=8)
+    want = fused_logits_topk_plain(x, g, b, table, sup, k=8)
+    torch.cuda.synchronize()
+    _assert_head_exact(got, want)
+    assert sorted(got[1][0, :3].tolist()) == [3, 700, 999]
+    assert got[1][0, 3:].tolist() == [0, 1, 2, 4, 5]
+
+
+@pytest.mark.parametrize("bk,v", [(5, 51866), (8, 51865), (20, 51866), (32, 51865)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_fused_head_grammar_at_every_shape(dev, bk, v, int8):
+    """Grammar mode at BK 5-32 on both vocabularies' layouts (exact
+    inputs): ids and values equal, lse within 1e-5, every grammar rule
+    held, the same bits call to call."""
+    from chip_smoke import grammar_decisions, grammar_head_case
+    from wis_tpu_torch.models.whisper.tokenizer import EOT, layout_for_vocab
+    from wis_tpu_torch.ops.fused_logits import fused_logits_topk, fused_logits_topk_plain
+    from wis_tpu_torch.ops.quant import quantize_rows
+
+    ts_base = layout_for_vocab(v).timestamp_base
+    x, g, b, emb, sup, ts = (torch.from_numpy(a).to(dev) for a in
+                             grammar_head_case(bk, 256, v, ts_base, EOT, seed=bk + v))
+    emb = emb.to(torch.bfloat16)
+    table = quantize_rows(emb) if int8 else emb
+    for full in (False, True):
+        kw = dict(k=8, full_lse=full, ts_state=ts, ts_base=ts_base, eot=EOT)
+        got = fused_logits_topk(x, g, b, table, sup, **kw)
+        again = fused_logits_topk(x, g, b, table, sup, **kw)
+        want = fused_logits_topk_plain(x, g, b, table, sup, **kw)
+        torch.cuda.synchronize()
+        _assert_head_exact(got, want)
+        held = grammar_decisions(got[0].cpu().numpy(), got[1].cpu().numpy(), ts_base, EOT)
+        assert all(held.values()), held
+        for a, c in zip(got, again):
+            assert torch.equal(a, c)
+
+
+#: GPT head decisions: (temperature, top_k, top_p, repetition_penalty,
+#: stop_blocked, do_sample) — k 1 and k ≥ V, p 1.0, 0.5 and near 0, the
+#: stop token blocked or not, greedy and sampled; every prefix mass of the
+#: candidates the p-threshold can cut stands GPT_HEAD_P_MARGIN or more
+#: from p at both widths (asserted)
+GPT_HEAD_EDGE_KNOBS = [
+    (1.0, 1, 1.0, 1.0, 1.0, 0.0), (0.7, 50, 1.0, 2.0, 0.0, 1.0), (0.5, 5000, 0.5, 1.0, 0.0, 1.0),
+    (0.7, 5000, 1e-3, 2.0, 1.0, 1.0), (0.5, 5000, 0.5, 1.0, 1.0, 0.0),
+    (0.1, 50, 0.8, 7.0, 1.0, 1.0),
+]
+
+
+@pytest.mark.parametrize("n_audio_vocab", [1026, 4000])
+@pytest.mark.parametrize("knobs", GPT_HEAD_EDGE_KNOBS)
+def test_fused_gpt_head_decisions_at_both_widths(dev, knobs, n_audio_vocab):
+    """V_pad 1152 and 4096, on chip_smoke's exact decision inputs: the same
+    token, kept set, values and hidden state as the plain version; every
+    top-p prefix mass of the kept candidates clear of p; two calls give the
+    same bits."""
+    import chip_smoke
+    from wis_tpu_torch.models.xtts.gpt import GPTConfig
+    from wis_tpu_torch.ops.fused_gpt_head import fused_gpt_head, fused_gpt_head_plain
+
+    cfg = GPTConfig(n_layer=1, n_audio_vocab=n_audio_vocab,
+                    start_audio_token=n_audio_vocab - 2, stop_audio_token=n_audio_vocab - 1)
+    inputs, _, _ = chip_smoke._gpt_head_decision_case(torch, dev, cfg, seed=7)
+    vp = inputs[2].shape[-1]
+    k = torch.tensor([list(knobs) + [0.0, 0.0]], device=dev)
+    got = fused_gpt_head(*inputs, k, cfg=cfg)
+    again = fused_gpt_head(*inputs, k, cfg=cfg)
+    tp, hp, lp = fused_gpt_head_plain(*inputs, k, cfg=cfg)
+    pre = fused_gpt_head_plain(*inputs, torch.tensor(
+        [[knobs[0], vp, 1.0, knobs[3], knobs[4], 0, 0, 0]], device=dev), cfg=cfg)[2]
+    torch.cuda.synchronize()
+    assert chip_smoke._prefix_margin(pre, knobs) > chip_smoke.GPT_HEAD_P_MARGIN
+    tk, hk, lk = got
+    assert int(tk) == int(tp) and torch.equal(hk, hp)
+    kept = lp > -1e29
+    assert torch.equal(lk > -1e29, kept)
+    assert float((lk[kept] - lp[kept]).abs().max()) <= 1e-5
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("sample", [0.0, 1.0])
+@pytest.mark.parametrize("top_p", [1.0, 0.3, 1e-6])
+def test_fused_gpt_head_all_logits_equal(dev, top_p, sample):
+    """A zero head: every logit equal, so top-k and top-p keep every tie,
+    greedy takes token 0 and sampling the gumbel row's argmax, as the
+    plain version does."""
+    from wis_tpu_torch.models.xtts.gpt import GPTConfig
+    from wis_tpu_torch.ops.fused_gpt_head import fused_gpt_head, fused_gpt_head_plain
+
+    cfg = GPTConfig(n_layer=1)
+    rng = np.random.default_rng(3)
+    x = _randn(rng, (1, 1024), dev, torch.float32, scale=2.0)
+    ln4 = torch.cat([torch.ones((1, 1024), device=dev), torch.zeros((1, 1024), device=dev)] * 2)
+    w = torch.zeros((1024, 1152), dtype=torch.bfloat16, device=dev)
+    zeros = torch.zeros((1, 1152), device=dev)
+    gum = _randn(rng, (1, 1152), dev, torch.float32)
+    k = torch.tensor([[1.0, 50, top_p, 1.0, 1.0, sample, 0.0, 0.0]], device=dev)
+    tk, hk, lk = fused_gpt_head(x, ln4, w, zeros, zeros, gum, k, cfg=cfg)
+    tp, hp, lp = fused_gpt_head_plain(x, ln4, w, zeros, zeros, gum, k, cfg=cfg)
+    torch.cuda.synchronize()
+    assert int(tk) == int(tp) and torch.equal(lk, lp) and torch.equal(hk, hp)
+    assert int((lk > -1e29).sum()) == cfg.n_audio_vocab - 1  # all but the blocked stop
+
+
 @pytest.mark.parametrize(
     "m,k,n",
     [

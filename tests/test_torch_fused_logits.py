@@ -168,3 +168,83 @@ def test_grammar_head_plain_matches_jax_kernel(int8, full_lse, bk):
     np.testing.assert_allclose(got_lse, want_lse, rtol=1e-5, atol=1e-5)
     held = grammar_decisions(got_val, got_tok, ts_base, EOT)
     assert all(held.values()), held
+
+
+# --------------------------------------------------------------------------- #
+# The CUDA kernel's plan, replayed on the host: nb blocks, each a contiguous
+# range of 64-row vocabulary tiles, each keeping a running top-k (taking a
+# tile's column only while it beats the k-th entry) and a running logsumexp
+# pair, folded in block order by the last block (csrc/fused_logits.cu). It
+# must give the plain version's stable top-k exactly, for any block count.
+# --------------------------------------------------------------------------- #
+TILE = 64
+
+
+def _lse_merge(m, s, mo, so):
+    big = max(m, mo)
+    if big == -np.inf:
+        return m, s
+    return big, ((0.0 if m == -np.inf else s * np.exp(m - big))
+                 + (0.0 if mo == -np.inf else so * np.exp(mo - big)))
+
+
+def _planned_head(logits, src, k, nb):
+    """(values, ids, lse) of each row as the kernel's plan computes them."""
+    bk, v = logits.shape
+    tiles = -(-v // TILE)
+    vals, ids, lses = [], [], []
+    for r in range(bk):
+        lists, pairs = [], []
+        for b in range(nb):
+            top, m, s = [(-np.inf, 2**31 - 1)] * k, -np.inf, 0.0
+            for t in range(tiles * b // nb, tiles * (b + 1) // nb):
+                cols = np.arange(t * TILE, min(v, (t + 1) * TILE))
+                sv = src[r, cols]
+                mt = sv.max()
+                m, s = _lse_merge(m, s, mt, np.exp(sv[sv > NEG_HALF] - mt).sum())
+                for i in sorted(cols, key=lambda c: (-logits[r, c], c)):
+                    if not logits[r, i] > top[-1][0]:
+                        break
+                    top = sorted(top + [(logits[r, i], i)], key=lambda e: (-e[0], e[1]))[:k]
+            lists += top
+            pairs.append((m, s))
+        m, s = -np.inf, 0.0
+        for mo, so in pairs:
+            m, s = _lse_merge(m, s, mo, so)
+        best = sorted(lists, key=lambda e: (-e[0], e[1]))[:k]
+        vals.append([e[0] for e in best])
+        ids.append([e[1] for e in best])
+        lses.append(m + np.log(max(s, 1e-30)))
+    return np.asarray(vals), np.asarray(ids), np.asarray(lses)[:, None]
+
+
+NEG_HALF = -0.5e30
+
+
+@pytest.mark.parametrize("v,nb", [(1000, 1), (1000, 7), (1000, 16), (51865, 132)])
+@pytest.mark.parametrize("live", [None, (700, 3, 999)])
+def test_kernel_plan_gives_the_stable_top_k(v, nb, live):
+    """Equal rows across a tile boundary (63, 64) and far apart (5, v − 1)
+    tie to the lower id; with ``live`` only three columns are unsuppressed,
+    so suppressed columns at NEG fill the rest, lowest ids first."""
+    rng = np.random.default_rng(v + nb)
+    d, bk, k = 16, 3, 8
+    x = rng.standard_normal((bk, d)).astype(np.float32)
+    emb = (np.round(rng.standard_normal((v, d)) * 8) / 8).astype(np.float32)
+    emb[[63, 64]] = emb[[5, v - 1]] = x[0] * 4
+    sup = np.zeros(v, np.float32)
+    if live is not None:
+        sup[:] = -1e30
+        sup[list(live)] = 0.0
+    dot = x @ emb.T
+    logits = (dot + sup).astype(np.float32)
+    val, tok, lse = _planned_head(logits, logits, k, nb)
+    ref = torch.sort(torch.from_numpy(logits), dim=-1, descending=True, stable=True)
+    np.testing.assert_array_equal(tok, ref.indices[:, :k].numpy())
+    np.testing.assert_array_equal(val, ref.values[:, :k].numpy())
+    np.testing.assert_allclose(lse, tl._lse(torch.from_numpy(logits)).numpy(), rtol=1e-5)
+    if live is None:
+        assert tok[0, :4].tolist() == [5, 63, 64, v - 1]
+    else:
+        assert sorted(tok[0, :3].tolist()) == [3, 700, 999]
+        assert tok[0, 3:].tolist() == [0, 1, 2, 4, 5]

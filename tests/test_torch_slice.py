@@ -403,6 +403,29 @@ def test_engine_picks_the_decode_path():
     assert not eng._xa_int8()
 
 
+@pytest.mark.parametrize("name", ["tiny", " Tiny "])
+def test_registry_eviction(name):
+    """``evict`` as the JAX registry's (tests/test_residency.py
+    test_eviction): True once, then False, nothing resident afterwards;
+    the name is resolved as ``get`` resolves it, and the fused step's
+    packed weights go with the model."""
+    from wis_tpu_torch.models.whisper.config import resolve_model_name
+    from wis_tpu_torch.runtime.engine import WhisperEngine
+    from wis_tpu_torch.runtime.residency import ModelRegistry
+    from wis_tpu_torch.settings import APISettings
+
+    reg = ModelRegistry(APISettings(quant="none"), "cpu")
+    eng = WhisperEngine(reg)
+    model = reg.get(name)
+    eng._packed_decoder(model)
+    assert reg.resident_bytes() > 0 and model.packed is not None
+    assert reg.evict(name)
+    assert not reg.evict(name)
+    assert reg.resident_bytes() == 0 and reg.loaded() == {}
+    again = reg.get(resolve_model_name(name))
+    assert again is not model and again.packed is None
+
+
 def test_engine_serves_what_was_not_ported(engines):
     """Audio over 30 s, timestamps, word timestamps and coalesced batches
     are served; what is refused stays refused: beam sizes outside the

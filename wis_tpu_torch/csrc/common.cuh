@@ -29,6 +29,17 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// A float's bits mapped so that unsigned order is the value's order (−0
+// as +0, so that equal values compare equal), and back.
+__device__ __forceinline__ uint32_t ordered(float f) {
+  const uint32_t u = __float_as_uint(f == 0.f ? 0.f : f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_ordered(uint32_t u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
 enum ReduceOp { kSum = 0, kMax = 1, kMin = 2 };
 
 // Block-wide sum, max or min over a block of NW warps; every thread gets

@@ -109,7 +109,7 @@ def kernels() -> ctypes.CDLL:
             lib.wis_fused_decode_step.restype = i
             lib.wis_fused_logits_workspace_bytes.argtypes = [i, i, i, i]
             lib.wis_fused_logits_workspace_bytes.restype = ll
-            lib.wis_fused_logits_topk.argtypes = [p] * 6 + [i] * 8 + [p] * 5
+            lib.wis_fused_logits_topk.argtypes = [p] * 6 + [i] * 8 + [p] * 6
             lib.wis_fused_logits_topk.restype = i
             lib.wis_fused_gpt_workspace_bytes.argtypes = [i, i]
             lib.wis_fused_gpt_workspace_bytes.restype = ll

@@ -3,11 +3,14 @@
 Replaces the TPU kernel ``build_fused_gpt_head``: the double final
 LayerNorm, the audio-code logits, the stop-token floor, the repetition
 penalty, temperature, top-k and top-p, and the categorical draw, for one
-row. On the card it is the hand-written CUDA of ``csrc/fused_gpt_head.cu``:
-a first kernel splits the (D, V_pad) bf16 product over blocks (each block
-recomputes the two LayerNorms of its one row), and a second, one block,
-does the selection. It is bound by the head's bytes (2.4 MB at XTTS v2's
-width) and a fixed ~1.3 M comparisons.
+row. On the card it is the hand-written CUDA of ``csrc/fused_gpt_head.cu``,
+one launch of a thread-block cluster: each block computes the two
+LayerNorms and one column strip of the (D, V_pad) bf16 product and writes
+its logits into the leader block's shared memory; the leader sorts the
+(value, index) pairs from the top down to the k-th (all of them for a
+large top_k) and reads the thresholds off the sorted order. Its time is
+the strip's stream, one cluster barrier and the selection (the head's
+2.4 MB at XTTS v2's width are under a microsecond of bytes).
 
 What it computes, exactly as the TPU kernel:
 
@@ -17,11 +20,13 @@ What it computes, exactly as the TPU kernel:
 - The penalty reads a hit-mask (1, V_pad) the caller carries, so it masks
   exactly as ``_mask_logits``' one-hot of the history does — token 0
   included, from the zero-padded history.
-- top-k and top-p need thresholds, not a sort: the k-th largest is
+- top-k and top-p are thresholds: the k-th largest is
   ``min{l(t) : #{l > l(t)} ≤ k−1}``; for top-p each token's prefix mass
   counts the tokens sorted before it, with equal values ordered by
   descending index (``jnp.sort``'s reversed stable order), and the
-  p-threshold is the cutoff-th largest.
+  p-threshold is the cutoff-th largest. The plain version counts, as the
+  TPU kernel does; the CUDA kernel sorts in that order and reads both off
+  it, its prefix masses summed in another order.
 - The draw takes the caller's gumbel row: ``argmax(l + gumbel)``, or the
   greedy argmax, lowest index on ties.
 
@@ -43,6 +48,8 @@ NEG = -1e30
 BIG = 1e30
 #: the largest padded vocabulary the selection block holds in shared memory
 MAX_VP = 4096
+#: the widest row the kernel stages
+MAX_D = 4096
 
 
 def v_padded(v: int) -> int:
@@ -122,8 +129,8 @@ def fused_gpt_head(x, ln4, head_w, head_b, hist, gum, knobs, *, cfg: GPTConfig,
                    dtype=torch.bfloat16):
     """The sampling head of one row; arguments and result as
     ``fused_gpt_head_plain``. CUDA tensors run ``csrc/fused_gpt_head.cu``
-    (bf16 head, D a multiple of 8, V_pad a multiple of 128 up to 4096);
-    CPU tensors run the plain version."""
+    (bf16 head, D a multiple of 8 up to 4096, V_pad a multiple of 128 up to
+    4096); CPU tensors run the plain version."""
     if x.device.type == "cpu":
         return fused_gpt_head_plain(x, ln4, head_w, head_b, hist, gum, knobs, cfg=cfg,
                                     dtype=dtype)
@@ -132,7 +139,7 @@ def fused_gpt_head(x, ln4, head_w, head_b, hist, gum, knobs, *, cfg: GPTConfig,
     dev = x.device
     d = cfg.d_model
     vp = v_padded(cfg.n_audio_vocab)
-    _check(d % 8 == 0, f"D={d} is not a multiple of 8")
+    _check(d % 8 == 0 and d <= MAX_D, f"D={d} is not a multiple of 8 up to {MAX_D}")
     _check(vp <= MAX_VP, f"V_pad={vp} above {MAX_VP}")
     _check(0 <= cfg.stop_audio_token < cfg.n_audio_vocab, "stop token outside the vocabulary")
     for name, t, shape, dt in (
@@ -150,7 +157,7 @@ def fused_gpt_head(x, ln4, head_w, head_b, hist, gum, knobs, *, cfg: GPTConfig,
     tok = torch.empty((1, 1), dtype=torch.int32, device=dev)
     hidden = torch.empty((1, d), dtype=torch.float32, device=dev)
     logits = torch.empty((1, vp), dtype=torch.float32, device=dev)
-    raw = torch.empty((1, vp), dtype=torch.float32, device=dev)
+    raw = torch.empty((1, vp), dtype=torch.float32, device=dev)  # the C interface's scratch row
     lib = _build.kernels()
     with torch.cuda.device(dev):
         rc = lib.wis_fused_gpt_head(

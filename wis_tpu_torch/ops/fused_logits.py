@@ -2,11 +2,12 @@
 logsumexp (port of ``wis_tpu/ops/fused_logits.py``).
 
 Replaces the TPU kernel ``build_fused_logits_topk``. On the card the head
-is the hand-written CUDA of ``csrc/fused_logits.cu``: one pass over the
-(V, D) embedding, bf16 or per-row int8, that keeps every (BK, V) tensor
-out of device memory and leaves only each vocabulary chunk's top-k and
-logsumexp partials, then a small kernel that folds them into the final
-top-k and ``lse``. It is bound by the embedding's bytes.
+is the hand-written CUDA of ``csrc/fused_logits.cu``, one launch: one
+block per SM streams its range of the (V, D) embedding (bf16 or per-row
+int8) through the tensor cores, keeps every (BK, V) tensor out of device
+memory and leaves only its running top-k and logsumexp pair per row; the
+last block to finish (a split counter of ``ops/quant``) folds them into
+the final top-k and ``lse``. It is bound by the embedding's bytes.
 
 Grammar mode (``grammar=True``) folds whisper's timestamp grammar in:
 per-beam ``ts_state (BK, 4)`` int32 rows (need_ts, need_text, min_ts, pad)
@@ -31,12 +32,15 @@ import torch
 from wis_tpu_torch.models.whisper.config import WhisperConfig
 from wis_tpu_torch.ops import _build
 from wis_tpu_torch.ops.layernorm import layer_norm_plain
+from wis_tpu_torch.ops.quant import _split_counters
 
 NEG = -1e30
 #: the most candidates per row the kernels take (the TPU kernel's KPAD)
 KPAD = 8
 #: the most rows (BK) the kernels take
 MAX_ROWS = 32
+#: the widest row the kernel's shared memory holds at MAX_ROWS rows
+MAX_D = 1472
 
 Emb = Union[torch.Tensor, dict]
 
@@ -104,7 +108,7 @@ def fused_logits_topk(x, ln_g, ln_b, emb: Emb, sup, *, k: int, full_lse: bool = 
                       ts_state=None, ts_base: int = 0, eot: int = 0):
     """The head; arguments and result as ``fused_logits_topk_plain``. CUDA
     tensors run ``csrc/fused_logits.cu`` (BK ≤ 32, k ≤ 8, D a multiple of
-    16); CPU tensors run the plain version."""
+    32 up to MAX_D); CPU tensors run the plain version."""
     if x.device.type == "cpu":
         return fused_logits_topk_plain(x, ln_g, ln_b, emb, sup, k=k, full_lse=full_lse,
                                        ts_state=ts_state, ts_base=ts_base, eot=eot)
@@ -113,7 +117,7 @@ def fused_logits_topk(x, ln_g, ln_b, emb: Emb, sup, *, k: int, full_lse: bool = 
     bk, d = x.shape
     _check(x.dtype == torch.float32, f"x must be f32 (BK, D), got {x.dtype}")
     _check(1 <= bk <= MAX_ROWS and 1 <= k <= KPAD, f"BK={bk} must be 1..{MAX_ROWS}, k={k} 1..{KPAD}")
-    _check(d % 16 == 0, f"D={d} is not a multiple of 16")
+    _check(d % 32 == 0 and 32 <= d <= MAX_D, f"D={d} is not a multiple of 32 up to {MAX_D}")
     emb_int8 = isinstance(emb, dict)
     if emb_int8:
         table, scales = emb["q"], emb["s"]
@@ -127,6 +131,7 @@ def fused_logits_topk(x, ln_g, ln_b, emb: Emb, sup, *, k: int, full_lse: bool = 
         v = table.shape[0]
         _check(table.dtype == torch.bfloat16 and table.shape == (v, d),
                f"emb must be bf16 (V, {d}), got {table.dtype} {tuple(table.shape)}")
+    _check(k <= v, f"k={k} above V={v}")
     _check(sup.dtype == torch.float32 and sup.shape == (v,),
            f"sup must be f32 ({v},), got {sup.dtype} {tuple(sup.shape)}")
     ln = torch.stack([ln_g, ln_b]).float()
@@ -154,7 +159,7 @@ def fused_logits_topk(x, ln_g, ln_b, emb: Emb, sup, *, k: int, full_lse: bool = 
             ts_state.data_ptr() if grammar else None,
             bk, d, v, k, int(full_lse), int(emb_int8), int(ts_base), int(eot),
             ws.data_ptr(), vals.data_ptr(), tok.data_ptr(), lse.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream, _split_counters(dev, 1).data_ptr(),
         )
     _build.check(rc, "fused_logits_topk")
     fused_logits_topk.launches += 1

@@ -172,6 +172,15 @@ class ModelRegistry:
     def loaded(self) -> Dict[str, LoadedModel]:
         return dict(self._models)
 
+    def evict(self, name: str) -> bool:
+        """Drop a model from the registry; True if one was resident. Its
+        tree and the fused step's packed weights (``LoadedModel.packed``)
+        go with it: the device memory is freed once no request still holds
+        the model."""
+        size = resolve_model_name(name)
+        with self._lock:
+            return self._models.pop(size, None) is not None
+
     def preload(self) -> None:
         """Eager loads per the preload flags."""
         s = self.settings
