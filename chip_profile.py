@@ -5,7 +5,7 @@ in the PyTorch/CUDA port (``wis_tpu_torch``), on one NVIDIA GPU.
 Run from the repository root, with one card visible:
 
     python3 chip_profile.py [--out build/profile]
-    python3 chip_profile.py --parent DIR [--out build/profile]
+    python3 chip_profile.py --parent DIR [--eager] [--out build/profile]
     python3 chip_profile.py --heads [--parent DIR]
 
 Prints, each on its own line, with the card's name and power limit first:
@@ -52,12 +52,14 @@ Prints, each on its own line, with the card's name and power limit first:
 ``--parent DIR`` compares this tree with another checkout of the repo
 instead: it loads that checkout's kernel library, built from its own
 sources (``chip_smoke._parent_library``), breaks both trees' heads and
-steps down as in part 0 on the same inputs, then times part 2's and 3's
+steps down as in part 0 on the same inputs, then times the eager 3.84 s
+request (unprofiled latency, then one profiled request's summed kernel
+time and ``ancestry_attention``'s share of it), part 2's and 3's
 unprofiled requests on the fused path, and part 4's streams both ways, in
 turns parent / change / change / parent, the parent's library standing in
 for this tree's behind the same wrappers (the kernels' C interfaces are
 the same; a C function may take one more trailing argument, which an
-older library ignores).
+older library ignores). ``--eager`` keeps only the eager request's turns.
 
 Each path's operator table by device time goes to
 ``<out>/profile_ops_<path>.txt``. The last line is one JSON object with
@@ -339,6 +341,46 @@ def request_turns(torch, engine, settings, parent_lib, out_dir):
     return out
 
 
+def eager_turns(torch, engine, settings, parent_lib, out_dir, reps=3):
+    """The eager decoder's 3.84 s / 32-token request (``fused_decode="off"``)
+    in turns parent / change / change / parent as ``request_turns``: per
+    turn the median of ``reps`` unprofiled latencies, then one profiled
+    request's kernel launches, summed kernel time and busy shares, and the
+    ``ancestry_attention`` kernel's launches and summed time. Keys are
+    prefixed ``turn<i>_<tree>_eager_``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wis_tpu_torch.ops import _build
+
+    own = _build.kernels()
+    settings.fused_decode = PATHS["eager"]
+    ms, cap = REQUESTS[0]
+    audio = _audio_i16(ms, 0)
+    out = {}
+    try:
+        for i, (label, lib) in enumerate((("parent", parent_lib), ("change", own),
+                                          ("change", own), ("parent", parent_lib))):
+            _build._lib = lib
+            try:
+                engine.transcribe(_audio_i16(1000, 99), beam_size=5, max_tokens=4)  # warm-up
+                times = [engine.transcribe(audio, beam_size=5, max_tokens=cap).infer_time_ms
+                         for _ in range(reps)]
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    engine.transcribe(audio, beam_size=5, max_tokens=cap)
+                torch.cuda.synchronize()
+                stats = _trace_stats(prof, "asr_dispatch", out_dir, f"eager_turn{i}",
+                                     statistics.median(times), ("dispatch", "request"),
+                                     named=("ancestry_attention",))
+            finally:
+                _build._lib = own
+            key = f"turn{i}_{label}_eager_request_{ms}ms_cap{cap}"
+            out[f"{key}_infer_ms"], out[f"{key}_infer_ms_all"] = statistics.median(times), times
+            out.update({f"{key}_{k}": v for k, v in stats.items()})
+    finally:
+        settings.fused_decode = PATHS["fused"]
+    return out
+
+
 def stream_turns(torch, parent_lib, reps=3):
     """The XTTS stream both ways — the default path (fused step, plain
     epilogue) and the fused sampling head — in turns parent / change /
@@ -390,20 +432,19 @@ def _union_us(intervals):
     return total
 
 
-def _trace_stats(prof, span, out_dir, tag, unprofiled_ms, unit):
+def _trace_stats(prof, span, out_dir, tag, unprofiled_ms, unit, named=()):
     """Kernel launches, summed kernel time and the busy shares of the
     annotated ``span`` in a profile (keys ``busy_share_of_profiled_<what>``
-    and ``busy_share_of_unprofiled_<of>`` for ``unit`` = (what, of)); the
-    ops table to ``out_dir``."""
+    and ``busy_share_of_unprofiled_<of>`` for ``unit`` = (what, of)), and
+    for each name in ``named`` the launches and summed time of the kernels
+    whose names hold it; the ops table to ``out_dir``."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    kernels = [
-        (e["ts"], e["ts"] + e["dur"]) for e in events
-        if e.get("cat") == "kernel" and e.get("ph") == "X"
-    ]
+    kernel_events = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in kernel_events]
     spans = [
         (e["ts"], e["ts"] + e["dur"]) for e in events
         if e.get("name") == span and e.get("ph") == "X"
@@ -418,13 +459,18 @@ def _trace_stats(prof, span, out_dir, tag, unprofiled_ms, unit):
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"profile_ops_{tag}.txt"), "w") as f:
         f.write(table)
-    return {
+    out = {
         f"profiled_{span}_ms": (b - a) / 1000.0,
         "kernel_launches": len(kernels),
         "kernel_ms_sum": kernel_ms,
         f"busy_share_of_profiled_{unit[0]}": _union_us(inside) / (b - a),
         f"busy_share_of_unprofiled_{unit[1]}": kernel_ms / unprofiled_ms,
     }
+    for name in named:
+        mine = [e["dur"] for e in kernel_events if name in e["name"]]
+        out[f"{name}_launches"] = len(mine)
+        out[f"{name}_ms_sum"] = sum(mine) / 1000.0
+    return out
 
 
 def profiled_request(torch, engine, out_dir, unprofiled_ms, tag):
@@ -568,6 +614,8 @@ def main() -> int:
                     "instead of the full profile")
     ap.add_argument("--heads", action="store_true", help="only the two vocabulary heads by "
                     "kernel (with --parent, both trees'), no model load")
+    ap.add_argument("--eager", action="store_true", help="with --parent: only the eager "
+                    "request's turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device available", file=sys.stderr)
@@ -595,7 +643,10 @@ def main() -> int:
     parent = _parent_library(args.parent) if args.parent else None
     trees = {"parent": parent} if parent else {}
     trees["change" if parent else "tree"] = (_build.kernels(), _build.check)
-    result.update(head_breakdown(torch, torch.device("cuda"), WHISPER_CONFIGS["large"], trees))
+    eager_only = bool(parent and args.eager)
+    if not eager_only:
+        result.update(head_breakdown(torch, torch.device("cuda"), WHISPER_CONFIGS["large"],
+                                     trees))
     if args.heads:
         print(json.dumps(result))
         return 0
@@ -603,11 +654,14 @@ def main() -> int:
                            long_beam_size=5, quant="int8")
     engine = WhisperEngine(ModelRegistry(settings, "cuda"))
     loaded = engine.registry.get("large")
-    report(step_breakdown(torch, engine.device, loaded.cfg, engine._packed_decoder(loaded),
-                          trees))
+    if not eager_only:
+        report(step_breakdown(torch, engine.device, loaded.cfg,
+                              engine._packed_decoder(loaded), trees))
     if parent:
-        report(request_turns(torch, engine, settings, parent[0], args.out), "fused_")
-        report(stream_turns(torch, parent[0]))
+        report(eager_turns(torch, engine, settings, parent[0], args.out))
+        if not eager_only:
+            report(request_turns(torch, engine, settings, parent[0], args.out), "fused_")
+            report(stream_turns(torch, parent[0]))
         print(json.dumps(result))
         return 0
 

@@ -9,7 +9,8 @@ With ``--parent`` (an unpacked archive of the parent commit's files, say)
 the script also builds that checkout's kernels and times them beside this
 tree's on the same inputs, in turns parent / change / change / parent,
 each side held to its plain version first: in phase 3 ``int8_matmul``,
-``layer_norm`` (beside ``F.layer_norm``) and the flash kernels, in phase 4
+``layer_norm`` (beside ``F.layer_norm``), the flash kernels and
+``ancestry_attention`` (BK 5 and 20), in phase 4
 the fused decode step at each non-trap case and the fused logits head at
 BK 5 and 20, int8 and bf16 table, plain and grammar mode, in phase 7 the
 GPT step at its three cache buckets and the GPT sampling head.
@@ -22,12 +23,14 @@ exits non-zero without printing a result:
 2. build the hand-written kernels from ``wis_tpu_torch/csrc`` (one nvcc per
    source, in parallel, into ``build/wis_tpu_torch/``) and print the build
    seconds and, from ``-Xptxas -v``, the registers and spills of the
-   ``int8_matmul``, Hopper flash, LayerNorm and decode-step kernels;
+   ``int8_matmul``, Hopper flash (every instance), LayerNorm, decode-step,
+   head and ``ancestry_attention`` kernels, and any warning that ptxas
+   serialised a ``wgmma``;
 3. hold each encoder kernel against its plain PyTorch version on the card,
    in bf16, at the encoder's shapes (flash also on inputs that expose an
    unmasked ragged key tile; the head-major flash kernel also at head
-   widths 32, 80 and 72, and bit-identical to the packed one at 64 and
-   128; the packed kernel on a batch of two whose second batch's first
+   widths 32, 80, 72, 136 and 256, and bit-identical to the packed one at
+   64 and 128; the packed kernel on a batch of two whose second batch's first
    values are Inf, batch 0 finite and equal to its plain version; one
    and two consumer warpgroups per block timed), and time kernel, plain
    version and the PyTorch library call that computes the same function;
@@ -35,8 +38,9 @@ exits non-zero without printing a result:
    ``int8_matmul`` (the cross-KV products of one and four windows, a
    decode step's MLP products at 5 and 15 rows, the XTTS prefill; the
    library call ``torch.mm`` on a bf16-dequantized weight) and
-   ``ancestry_attention`` (BK 5 and 20, H=20, Dh=64, a scrambled map, a
-   trap past pos);
+   ``ancestry_attention`` (BK 5, 20 and 40, H=20, Dh=64, a map scrambled
+   within groups of five rows or across all 40, T=100 read to pos 99, a
+   trap past pos, two calls giving the same bits);
 4. load large-v2 with seeded random int8 weights; hold the fused decode
    step (all 32 layers, BK=5 with caches of 128 and 256 positions, int8
    and bf16 cross-KV, and BK=20 over four windows) and the fused logits
@@ -369,9 +373,11 @@ def check_cross_batch_trap(torch, dev, heads):
 
 #: head-major flash cases (B, H, T, Dh): large-v2's encoder and the other
 #: head widths the JAX gate sends to the head-major kernel — the micro
-#: configs' 32, 80, and 72 (Dh % 16 == 8)
+#: configs' 32, 80, 72 (Dh % 16 == 8), and 136 and 256 (padded to three
+#: and four 64-column blocks)
 HEAD_MAJOR_CASES = ((1, 20, 1500, 64), (1, 10, 1500, 128), (2, 2, 700, 32),
-                    (1, 16, 1500, 80), (1, 18, 600, 72))
+                    (1, 16, 1500, 80), (1, 18, 600, 72), (1, 10, 1500, 136),
+                    (1, 5, 1500, 256))
 
 
 def _head_major_inputs(torch, dev, b, h, t, dh, trap, seed, tail=64):
@@ -896,11 +902,12 @@ def _parent_library(parent):
 
 
 def compare_with_parent(torch, dev, parent):
-    """Rows 6, 1, 2 and 3 against the parent checkout's kernels on the same
-    inputs, timed in turns parent / change / change / parent at every
-    int8_matmul shape, the encoder's LayerNorm (beside ``F.layer_norm``)
-    and every packed and head-major flash shape; each side's output held
-    to its plain version first. Returns {shape: times}."""
+    """Rows 6, 1, 2, 3 and 9 against the parent checkout's kernels on the
+    same inputs, timed in turns parent / change / change / parent at every
+    int8_matmul shape, the encoder's LayerNorm (beside ``F.layer_norm``),
+    every packed and head-major flash shape and the first two
+    ``ANC_CASES``; each side's output held to its plain version first.
+    Returns {shape: times}."""
     from wis_tpu_torch.ops.flash import (
         flash_attention,
         flash_attention_packed,
@@ -1013,6 +1020,21 @@ def compare_with_parent(torch, dev, parent):
               lambda q=q, k=k, v=v, o=o, b=b, h=h, t=t, dh=dh: parent_flash(
                   lib.wis_flash_attention, q, k, v, o, b, h, t, dh, float(dh ** -0.5)),
               lambda q=q, k=k, v=v: flash_attention(q, k, v), flash_attention_plain(q, k, v))
+    from wis_tpu_torch.ops.decode_attn import ancestry_attention, ancestry_attention_plain
+
+    for bk, t, pos, beams in ANC_CASES[:2]:
+        q, kc, vc, anc = _anc_inputs(torch, dev, bk, t, pos, False, seed=bk + t, beams=beams)
+        o = torch.empty_like(q)
+
+        def parent_anc(q=q, kc=kc, vc=vc, anc=anc, o=o, bk=bk, t=t, pos=pos):
+            check(lib.wis_ancestry_attention(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                                             anc.data_ptr(), bk, 20, 64, t, pos, 64 ** -0.5,
+                                             o.data_ptr(), stream()), "parent ancestry_attention")
+            return o
+
+        turns(f"ancestry_attention BK={bk} H=20 Dh=64 T={t} pos={pos}", parent_anc,
+              lambda q=q, kc=kc, vc=vc, anc=anc, pos=pos: ancestry_attention(q, kc, vc, anc, pos),
+              ancestry_attention_plain(q, kc, vc, anc, pos))
     return out
 
 
@@ -1155,7 +1177,7 @@ def _host_us(torch, fn, calls=200):
 
 def print_ptxas(names=("int8_matmul_kernel", "flash_wgmma_kernel", "int8_product_kernel",
                        "self_attention_kernel", "cross_attention_kernel", "layer_norm_kernel",
-                       "logits_topk_kernel", "gpt_head_kernel")):
+                       "logits_topk_kernel", "gpt_head_kernel", "ancestry_attention_kernel")):
     """Registers and spills of the kernels named, one line per instance,
     from the build's -Xptxas -v output."""
     from wis_tpu_torch.ops import _build
@@ -1170,6 +1192,8 @@ def print_ptxas(names=("int8_matmul_kernel", "flash_wgmma_kernel", "int8_product
                     tail = m.group(1).split(fn, 1)[1]
                     fn = fn + (re.sub(r"E+v.*$", "", tail).replace("I", "<", 1) + ">"
                                if tail.startswith("I") else "")
+            elif "warning" in line and "wgmma" in line:
+                print(f"ptxas {log.name.split('.')[0]}: {line.strip()}")
             elif fn and "spill" in line:
                 spill = line.strip()
             elif fn and "Used" in line:
@@ -1179,16 +1203,19 @@ def print_ptxas(names=("int8_matmul_kernel", "flash_wgmma_kernel", "int8_product
                 fn = None
 
 
-#: ancestry_attention cases (BK, T, pos): one window's beams and four
-#: windows', early and late in a cache
-ANC_CASES = ((5, 128, 64), (20, 256, 200))
+#: ancestry_attention cases (BK, T, pos, beams per group): one window's
+#: beams and four windows', early and late in a cache (the two timed
+#: beside the parent's kernel), eight windows (beyond the fused step's 32
+#: rows), a map across all 40 rows, and T % 8 != 0 read to its last column
+ANC_CASES = ((5, 128, 64, 5), (20, 256, 200, 5), (40, 256, 200, 5), (40, 256, 200, 40),
+             (5, 100, 99, 5))
 
 
-def _anc_inputs(torch, dev, bk, t, pos, trap, seed):
+def _anc_inputs(torch, dev, bk, t, pos, trap, seed, beams=5):
     """Large-v2 self-attention shapes (H=20, Dh=64) with an ancestry map
-    scrambled inside each window's five rows up to pos and -1 after; with
-    ``trap`` the cache columns past pos hold keys of ±1e4 and values of
-    1e4, which a kernel reading them cannot hide."""
+    scrambled inside each group of ``beams`` rows up to pos and -1 after;
+    with ``trap`` the cache columns past pos hold keys of ±1e4 and values
+    of 1e4, which a kernel reading them cannot hide."""
     rng = np.random.default_rng(seed)
 
     def randn(*shape, scale=1.0):
@@ -1200,33 +1227,41 @@ def _anc_inputs(torch, dev, bk, t, pos, trap, seed):
         kc[..., pos + 1:] = 1e4 * torch.sign(kc[..., pos + 1:])
         vc[..., pos + 1:] = 1e4
     anc = np.full((bk, t), -1, np.int32)
-    anc[:, : pos + 1] = rng.integers(0, 5, (bk, pos + 1)) + (np.arange(bk) // 5 * 5)[:, None]
+    anc[:, : pos + 1] = (rng.integers(0, beams, (bk, pos + 1))
+                         + (np.arange(bk) // beams * beams)[:, None])
     return q, kc.to(torch.bfloat16), vc.to(torch.bfloat16), torch.from_numpy(anc).to(dev)
 
 
 def check_ancestry_attention(torch, dev):
-    """ancestry_attention against its plain version (the flash rule: each
-    element within 2 bf16 ulps plus 2⁻⁸·max|plain|; both take f32 scores,
-    softmax and sums in another order and round once), on standard and
-    trap inputs; timed at the standard ones. No single PyTorch call
-    computes it (the rows must be gathered first)."""
+    """ancestry_attention against its plain version at every ANC_CASES
+    case (the flash rule: each element within 2 bf16 ulps plus
+    2⁻⁸·max|plain|; both take f32 scores, softmax and sums in another
+    order and round once), on standard and trap inputs, two calls giving
+    the same bits; timed at the standard ones. No single PyTorch call
+    computes it (the rows must be gathered first). Returns {(BK, T, pos,
+    beams): row}."""
     from wis_tpu_torch.ops.decode_attn import ancestry_attention, ancestry_attention_plain
 
     rows = {}
-    for bk, t, pos in ANC_CASES:
+    for bk, t, pos, beams in ANC_CASES:
         for trap in (False, True):
-            q, kc, vc, anc = _anc_inputs(torch, dev, bk, t, pos, trap, seed=bk + t + trap)
+            q, kc, vc, anc = _anc_inputs(torch, dev, bk, t, pos, trap, seed=bk + t + trap,
+                                         beams=beams)
             got = ancestry_attention(q, kc, vc, anc, pos)
+            again = ancestry_attention(q, kc, vc, anc, pos)
             want = ancestry_attention_plain(q, kc, vc, anc, pos)
             torch.cuda.synchronize()
             r = want.float()
             d = (got.float() - r).abs()
             bad = int((d > 2 * _bf16_ulp(r) + 2.0 ** -8 * float(r.abs().max())).sum())
-            case = f"ancestry_attention BK={bk} H=20 Dh=64 T={t} pos={pos}{' trap' if trap else ''}"
-            print(f"{case}: max|Δ| {float(d.max()):.3e}, max|plain| {float(r.abs().max()):.3e} "
-                  f"({bad} elements over 2 bf16 ulps + 2^-8·max|plain|)")
-            if bad or not float(got.float().abs().max()) < 100:
-                raise AssertionError(f"{case}: kernel disagrees with plain")
+            err = float(d.max())
+            same = torch.equal(got, again)
+            case = (f"ancestry_attention BK={bk} H=20 Dh=64 T={t} pos={pos} groups of "
+                    f"{beams}{' trap' if trap else ''}")
+            print(f"{case}: max|Δ| {err:.3e}, max|plain| {float(want.float().abs().max()):.3e} "
+                  f"({bad} elements over 2 bf16 ulps + 2^-8·max|plain|); two calls equal {same}")
+            if bad or not same or not float(got.float().abs().max()) < 100:
+                raise AssertionError(f"{case}: kernel disagrees with plain or with itself")
             if trap:
                 continue
             ms = _median_ms(lambda: ancestry_attention(q, kc, vc, anc, pos))
@@ -1237,8 +1272,9 @@ def check_ancestry_attention(torch, dev):
                                         4 * bk * 20 * 64 * n, F32_FLOPS)
             print(f"{case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {bound_ms:.4f} ms ({bound_by})")
-            rows[bk] = dict(max_abs_err=float(d.max()), ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            rows[(bk, t, pos, beams)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                             bound_ms=bound_ms, bound_by=bound_by,
+                                             library_ms=None)
     return rows
 
 
@@ -2366,7 +2402,7 @@ def main() -> int:
         dict(name="int8_matmul", source="wis_tpu_torch/csrc/int8_matmul.cu",
              replaces="wis_tpu/ops/quant_pallas.py:41", **i8[(1500, 1280, 1280)]),
         dict(name="ancestry_attention", source="wis_tpu_torch/csrc/ancestry_attention.cu",
-             replaces="wis_tpu/ops/decode_attn.py:83", **anc[5]),
+             replaces="wis_tpu/ops/decode_attn.py:83", **anc[ANC_CASES[0]]),
         dict(name="fused_logits_topk(grammar)", source="wis_tpu_torch/csrc/fused_logits.cu",
              replaces="wis_tpu/ops/fused_logits.py:48", **heads[(5, True, True)]),
         dict(name="flash_attention", source="wis_tpu_torch/csrc/flash_attention.cu",

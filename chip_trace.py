@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Phase traces of the two vocabulary heads on one NVIDIA GPU.
+"""Phase traces of the two vocabulary heads and the eager decoder's
+``ancestry_attention`` on one NVIDIA GPU.
 
 Run from the repository root, with one card visible:
 
     python3 chip_trace.py
 
-Builds copies of ``wis_tpu_torch/csrc/fused_logits.cu`` and
-``fused_gpt_head.cu`` under ``build/trace/`` with markers added: thread 0 of
+Builds copies of ``wis_tpu_torch/csrc/fused_logits.cu``,
+``fused_gpt_head.cu`` and ``ancestry_attention.cu`` under ``build/trace/`` with markers added: thread 0 of
 each block writes ``%globaltimer`` (ns) at phase boundaries into a device
 array, read back after a call. Each head runs at the main path's shapes
 (``chip_smoke.head_case``, ``chip_smoke.gpt_head_case``); the script prints
@@ -21,7 +22,12 @@ from the earliest block's start:
   lists' staging, their compaction (row 0's warp) and the end;
 - the XTTS head: block 0 (the leader) at the LayerNorms' end, the strip's
   product, the partials merged, the cluster barrier, the keys, the sort,
-  the thresholds and the argmax.
+  the thresholds and the argmax;
+- ``ancestry_attention`` (``ancestry_attention.cu``, built the same way)
+  at BK 5 and 20 and at the eager request's BK 5 over 36 columns: the
+  medians over blocks of the first wave requested, the state set, each
+  unit's data in, scores, statistics and P·V, the units done, the
+  cluster's blocks running, the partials pushed and the merge done.
 
 The markers cost a global store by one thread per phase. The kernels'
 numerics are untouched; the copies are not the library the port loads.
@@ -50,10 +56,14 @@ TIMER = (
     '  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));\n'
     "  return t;\n"
     "}\n"
-    "#define TR(i) do { if (threadIdx.x == 0) g_trace[blockIdx.x][(i)] = gtime(); } while (0)\n"
+    "#define TR(i) do { if (threadIdx.x == 0) g_trace[blockIdx.x + gridDim.x * (blockIdx.y + "
+    "gridDim.y * blockIdx.z)][(i)] = gtime(); } while (0)\n"
 )
 READ = ('\nextern "C" int wis_trace_read(void* host) {\n'
-        "  return (int)cudaMemcpyFromSymbol(host, g_trace, sizeof(g_trace));\n}\n")
+        "  return (int)cudaMemcpyFromSymbol(host, g_trace, sizeof(g_trace));\n}\n"
+        'extern "C" int wis_trace_clear() {\n'
+        "  static const unsigned long long zero[256][64] = {};\n"
+        "  return (int)cudaMemcpyToSymbol(g_trace, zero, sizeof(g_trace));\n}\n")
 
 #: (source, [(anchor, text inserted before it)]) — marker i at each anchor
 LOGITS_MARKS = [
@@ -86,6 +96,31 @@ GPT_MARKS = [
 ]
 GPT_PHASES = ("LayerNorms", "product", "partials", "cluster barrier", "keys", "sort",
               "thresholds", "argmax")
+#: ancestry_attention: the first wave requested (1), the state set (2);
+#: per unit u < 4 its data in (3 + 4u), scores (4 + 4u), statistics
+#: (5 + 4u), P·V (6 + 4u); the units done (20), the cluster's blocks
+#: running (21), the partials pushed (22), the merge done (23)
+ANC_MARKS = [
+    ("  for (int i = tid; i < rb * dh; i += kThreads) os[i] = 0.f;", "  TR(1);\n"),
+    ("  for (int u = 0; u < units; ++u) {\n    if (p.ns > 1)",
+     "  __syncthreads();\n  TR(2);\n  int tu = 0;\n"),
+    ("    const int c = c_lo + (u / tiles) * p.CC, r0 = (u % tiles) * p.RT;\n"
+     "    const int cols = min(p.CC, c_hi - c), rt = min(p.RT, BK - r0);\n    const uint8_t* st",
+     "    if (tu < 4) TR(3 + 4 * tu);\n"),
+    ("    // the unit's softmax statistics, CC lanes a row", "    if (tu < 4) TR(4 + 4 * tu);\n"),
+    ("    // P·V: one thread per (row, pair of d)", "    if (tu < 4) TR(5 + 4 * tu);\n"),
+    ("    __syncthreads();  // the stage is free\n",
+     "    __syncthreads();\n    if (tu < 4) TR(6 + 4 * tu);\n    ++tu;\n"),
+    ("  cg::cluster_group cluster = cg::this_cluster();\n  asm volatile(\"barrier.cluster.wait",
+     "  __syncthreads();\n  TR(20);\n"),
+    ("  const int n_items = rb * dh, share", "  TR(21);\n"),
+    ("  cluster.sync();\n  for (int j = tid;", "  TR(22);\n"),
+]
+ANC_AFTER = [("  const Plan p = args.p;\n", "  TR(0);\n"),
+             ("        __float2bfloat16_rn(num / den);\n  }\n", "  TR(23);\n")]
+#: the eager request's own shape (BK 5, a cache of prompt + 32 columns,
+#: T % 8 != 0) beside chip_smoke's two timed cases
+ANC_TRACE_CASES = ((5, 128, 64), (20, 256, 200), (5, 36, 35))
 
 
 def patched(name, marks, after=()):
@@ -105,13 +140,14 @@ def patched(name, marks, after=()):
 
 
 def build():
-    """Both traced libraries, one nvcc each, in parallel → {name: CDLL}."""
+    """The traced libraries, one nvcc each, in parallel → {name: CDLL}."""
     from wis_tpu_torch.ops import _build
 
     os.makedirs(OUT, exist_ok=True)
     shutil.copy(os.path.join(CSRC, "common.cuh"), OUT)
     srcs = {"fused_logits": patched("fused_logits.cu", LOGITS_MARKS, [LOGITS_ROWS_END]),
-            "fused_gpt_head": patched("fused_gpt_head.cu", GPT_MARKS)}
+            "fused_gpt_head": patched("fused_gpt_head.cu", GPT_MARKS),
+            "ancestry_attention": patched("ancestry_attention.cu", ANC_MARKS, ANC_AFTER)}
     procs = []
     for name, src in srcs.items():
         path = os.path.join(OUT, f"{name}_trace.cu")
@@ -128,6 +164,8 @@ def build():
     libs["fused_logits"].wis_fused_logits_workspace_bytes.argtypes = [i] * 4
     libs["fused_logits"].wis_fused_logits_workspace_bytes.restype = ctypes.c_longlong
     libs["fused_gpt_head"].wis_fused_gpt_head.argtypes = [p] * 11 + [i] * 4 + [p]
+    libs["ancestry_attention"].wis_ancestry_attention.argtypes = (
+        [p] * 4 + [i] * 5 + [ctypes.c_float, p, p])
     for lib in libs.values():
         lib.wis_trace_read.argtypes = [p]
     return libs
@@ -183,6 +221,41 @@ def trace_gpt_head(torch, dev, lib):
                                    enumerate(GPT_PHASES)) + " µs")
 
 
+def trace_ancestry(torch, dev, lib, bk, t, pos):
+    """One ancestry_attention call at large-v2's self-attention shape
+    (chip_smoke._anc_inputs): the medians over blocks of each phase's end."""
+    from wis_tpu_torch.ops import _build
+
+    q, kc, vc, anc = chip_smoke._anc_inputs(torch, dev, bk, t, pos, False, seed=bk + t)
+    o = torch.empty_like(q)
+
+    def fn():
+        _build.check(lib.wis_ancestry_attention(
+            q.data_ptr(), kc.data_ptr(), vc.data_ptr(), anc.data_ptr(), bk, 20, 64, t, pos,
+            64 ** -0.5, o.data_ptr(), torch.cuda.current_stream().cuda_stream), "traced ancestry")
+
+    ms = chip_smoke._median_ms(fn)
+    torch.cuda.synchronize()
+    lib.wis_trace_clear()
+    fn()
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * (256 * 64))()
+    lib.wis_trace_read(ctypes.addressof(buf))
+    raw = np.frombuffer(buf, dtype=np.uint64).reshape(256, 64).astype(np.int64)
+    on = raw > 0
+    live = on[:, 0] & on[:, 23]
+    tr = (raw - raw[live, 0].min()) / 1000.0
+    names = {1: "first wave requested", 2: "state set", 20: "units done",
+             21: "cluster running", 22: "partials pushed", 23: "merged"}
+    for u in range(4):
+        names.update({3 + 4 * u: f"unit {u} in", 4 + 4 * u: f"scores {u}",
+                      5 + 4 * u: f"statistics {u}", 6 + 4 * u: f"P·V {u}"})
+    parts = [f"{name} {statistics.median(tr[live & on[:, i], i]):.2f}"
+             for i, name in sorted(names.items()) if (live & on[:, i]).any()]
+    print(f"ancestry_attention BK={bk} H=20 Dh=64 T={t} pos={pos}: {ms:.4f} ms a call, "
+          f"{int(live.sum())} blocks; medians over blocks: " + ", ".join(parts) + " µs")
+
+
 def main() -> int:
     import torch
 
@@ -199,6 +272,8 @@ def main() -> int:
     for bk, int8, grammar in chip_smoke.HEAD_CASES:
         trace_logits(torch, dev, libs["fused_logits"], WHISPER_CONFIGS["large"], bk, int8, grammar)
     trace_gpt_head(torch, dev, libs["fused_gpt_head"])
+    for bk, t, pos in ANC_TRACE_CASES:
+        trace_ancestry(torch, dev, libs["ancestry_attention"], bk, t, pos)
     return 0
 
 

@@ -214,7 +214,7 @@ def _assert_attention_close(got, want):
         (1, 16, 1500, 80),
         (1, 18, 600, 72),  # Dh % 16 == 8: half of the last k-slice is zero
         (3, 2, 65, 8),  # the narrowest head; one key and one query past a tile
-        (1, 3, 200, 136),  # past 128: 32-key tiles
+        (1, 3, 200, 136),  # past 128: three 64-column blocks, the last mostly zeros
         (1, 2, 1, 24),  # a single key
         (1, 2, 97, 256),  # the widest head the kernel takes
     ],
@@ -1176,7 +1176,12 @@ def _anc_case(dev, bk, beams, h, dh, t, pos, seed):
     return q, kc.to(torch.bfloat16), vc.to(torch.bfloat16), torch.from_numpy(anc).to(dev)
 
 
-@pytest.mark.parametrize("bk,beams,t,pos", [(5, 5, 128, 70), (20, 5, 256, 200), (1, 1, 128, 0)])
+@pytest.mark.parametrize("bk,beams,t,pos", [
+    (5, 5, 128, 70), (20, 5, 256, 200), (1, 1, 128, 0),
+    (40, 5, 256, 200),  # eight groups of five: beyond the fused step's 32 rows
+    (40, 40, 256, 200),  # a map across groups: any row in [0, BK)
+    (5, 5, 100, 99),  # T % 8 != 0: runs start mid-vector; pos at the last column
+])
 def test_ancestry_attention_matches_plain(dev, bk, beams, t, pos):
     """Within 2 bf16 ulps plus 2⁻⁸ of the output's largest magnitude (both
     take f32 scores, softmax and sums in another order and round once);
@@ -1190,10 +1195,73 @@ def test_ancestry_attention_matches_plain(dev, bk, beams, t, pos):
     torch.cuda.synchronize()
     assert ancestry_attention.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _assert_anc_close(got, want)
+
+
+def _assert_anc_close(got, want):
     r = want.float()
     assert float(r.abs().max()) < 10  # the plain version reads no trap either
     over = (got.float() - r).abs() > 2 * _bf16_ulp(r) + 2.0 ** -8 * float(r.abs().max())
     assert not bool(over.any()), f"{int(over.sum())} elements beyond tolerance"
+
+
+@pytest.mark.parametrize("dh", [8, 80, 128, 256])
+def test_ancestry_attention_head_widths(dev, dh):
+    """Every class of head width the kernel takes (a lane's d values fill
+    a quarter of 64, 128 or 256), against the plain version."""
+    from wis_tpu_torch.ops.decode_attn import ancestry_attention, ancestry_attention_plain
+
+    q, kc, vc, anc = _anc_case(dev, 10, 5, 4, dh, 96, 60, seed=dh)
+    got = ancestry_attention(q, kc, vc, anc, 60)
+    want = ancestry_attention_plain(q, kc, vc, anc, 60)
+    torch.cuda.synchronize()
+    _assert_anc_close(got, want)
+
+
+def test_ancestry_attention_unaligned_caches(dev):
+    """Caches that start 2 and 6 bytes past a 16-byte boundary (T a
+    multiple of 8), read up to their last column: every run starts
+    mid-vector, and the vectors across each tensor's first and last
+    element, whose other halves hold NaN, are read element by element."""
+    from wis_tpu_torch.ops.decode_attn import ancestry_attention, ancestry_attention_plain
+
+    q, kc, vc, anc = _anc_case(dev, 5, 5, 20, 64, 128, 127, seed=9)
+    n = kc.numel()
+    kbuf = torch.empty(n + 8, dtype=torch.bfloat16, device=dev)
+    vbuf = torch.empty(n + 8, dtype=torch.bfloat16, device=dev)
+    k1, v1 = kbuf[1:1 + n].view(kc.shape), vbuf[3:3 + n].view(vc.shape)
+    k1.copy_(kc)
+    v1.copy_(vc)
+    kbuf[0], kbuf[n + 1:] = float("nan"), float("nan")
+    vbuf[:3], vbuf[n + 3:] = float("nan"), float("nan")
+    assert k1.is_contiguous() and k1.data_ptr() % 16 == 2 and v1.data_ptr() % 16 == 6
+    got = ancestry_attention(q, k1, v1, anc, 127)
+    want = ancestry_attention_plain(q, kc, vc, anc, 127)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _assert_anc_close(got, want)
+
+
+def test_ancestry_attention_same_bits_twice(dev):
+    """The splits merge in a fixed order: two calls give the same bits."""
+    from wis_tpu_torch.ops.decode_attn import ancestry_attention
+
+    q, kc, vc, anc = _anc_case(dev, 20, 5, 20, 64, 256, 200, seed=3)
+    first = ancestry_attention(q, kc, vc, anc, 200)
+    second = ancestry_attention(q, kc, vc, anc, 200)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_ancestry_attention_refuses_other_head_widths(dev):
+    from wis_tpu_torch.ops.decode_attn import ancestry_attention
+
+    before = ancestry_attention.launches
+    for dh in (12, 264):
+        q, kc, vc, anc = _anc_case(dev, 2, 2, 1, dh, 16, 3, seed=dh)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            ancestry_attention(q, kc, vc, anc, 3)
+    assert ancestry_attention.launches == before
 
 
 def test_eager_decoder_runs_the_new_kernels(dev):

@@ -26,14 +26,14 @@ torch.set_num_threads(1)
 H, DH = 4, 64
 
 
-def _case(bk, t, pos, seed, beams=None):
+def _case(bk, t, pos, seed, beams=None, dh=DH):
     """q, caches and a scrambled (BK, T) map of physical rows; the map
     picks rows inside each group of ``beams`` (all rows by default)."""
     beams = beams or bk
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((bk, H, DH)).astype(np.float32)
-    kc = (rng.standard_normal((bk, H, DH, t)) * 0.5).astype(np.float32)
-    vc = rng.standard_normal((bk, H, DH, t)).astype(np.float32)
+    q = rng.standard_normal((bk, H, dh)).astype(np.float32)
+    kc = (rng.standard_normal((bk, H, dh, t)) * 0.5).astype(np.float32)
+    vc = rng.standard_normal((bk, H, dh, t)).astype(np.float32)
     kc[..., pos + 1:] = 1e4
     vc[..., pos + 1:] = 1e4
     anc = np.full((bk, t), -1, np.int32)
@@ -59,6 +59,26 @@ def test_plain_matches_jax_kernel_and_oracle(bk, t, pos):
     assert np.abs(got).max() < 10  # no column past pos was read
     np.testing.assert_allclose(got, kern, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bk,t,pos,beams,dh", [
+    (20, 64, 40, 5, DH),  # four windows' groups of five beams
+    (5, 100, 99, None, DH),  # T % 8 != 0, pos at the last column
+    (5, 64, 40, None, 80),  # a head width off the powers of two
+])
+def test_plain_matches_jax_kernel_more_shapes(bk, t, pos, beams, dh):
+    """The shapes the card's kernel plans differently for (rows in groups,
+    runs that start mid-vector, a lane's d values not filling its class),
+    held against the JAX kernel in interpret mode."""
+    q, kc, vc, anc = _case(bk, t, pos, seed=bk + t + dh, beams=beams, dh=dh)
+    with pltpu.force_tpu_interpret_mode():
+        kern = np.asarray(jax_kernel(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                                     jnp.asarray(anc), jnp.int32(pos)))
+    got = decode_attn.ancestry_attention(*(torch.from_numpy(a) for a in (q, kc, vc, anc)), pos)
+    assert got.shape == (bk, H, dh)
+    got = got.numpy()
+    assert np.abs(got).max() < 10  # no column past pos was read
+    np.testing.assert_allclose(got, kern, rtol=1e-5, atol=1e-5)
 
 
 def test_negative_rows_read_zero_keys_and_values():

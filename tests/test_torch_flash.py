@@ -53,6 +53,19 @@ def test_flash_matches_jax_interpret(b, h, t, dh):
     assert torch.equal(wrapped, plain) and flash_attention.launches == before
 
 
+@pytest.mark.parametrize("b,h,t,dh", [(1, 2, 200, 80), (1, 2, 130, 136)])
+def test_flash_matches_jax_interpret_padded_widths(b, h, t, dh):
+    """Head widths the card's kernel pads to 128 and 192 columns."""
+    rng = np.random.default_rng(t + dh)
+    q, k, v = (rng.standard_normal((b, h, t, dh)).astype(np.float32) for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_flash(*(jnp.asarray(x) for x in (q, k, v)),
+                                    block_q=128, block_k=256))
+    got = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    assert got.shape == (b, h, t, dh) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
 def test_wrapper_refuses_other_devices():
     x = torch.empty((1, 2, 8, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

@@ -3,6 +3,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace wis {
@@ -255,6 +256,40 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Asynchronous 4-byte copy global → shared (cp.async through L1): any
+// 4-byte aligned address, for rows that 16-byte copies cannot take.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// ---- thread-block clusters -----------------------------------------------
+
+constexpr int kMaxSplits = 8;  // blocks of one cluster (the portable size)
+
+// Launches `kernel` with blocks of `threads` threads in clusters of
+// `cluster` blocks along `axis` (1: y, 2: z) of the grid, which must hold a
+// whole number of them.
+template <typename... Args>
+cudaError_t launch_clustered(void (*kernel)(Args...), dim3 grid, int threads, size_t smem,
+                             int axis, int cluster, cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = axis == 1 ? cluster : 1;
+  attr[0].val.clusterDim.z = axis == 2 ? cluster : 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 }  // namespace wis

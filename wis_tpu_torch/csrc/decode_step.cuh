@@ -42,6 +42,8 @@ namespace {
 namespace cg = cooperative_groups;
 using wis::bf16_round;
 using wis::int8x4_to_float;
+using wis::kMaxSplits;
+using wis::launch_clustered;
 using wis::warp_max;
 using wis::warp_sum;
 
@@ -54,7 +56,6 @@ constexpr int kMaxRows = 32;
 constexpr int kStrip = 64;            // output columns per product block
 constexpr int kStages = 4;            // weight stages of a block's slab
 constexpr int kKStep = 64;            // K is split in whole steps of 64 rows
-constexpr int kMaxSplits = 8;         // splits of one cluster (the portable size)
 constexpr int kSelfCols = 256;        // cache columns per self-attention tile
 constexpr int kTileStride = kSelfCols + 10;  // bf16 per tile row: 8 spare, 133 words, odd
 
@@ -93,26 +94,6 @@ cudaError_t allow_smem(Kernel kernel, bool* done) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   *done = e == cudaSuccess;
   return e;
-}
-
-// Launches `kernel` with clusters of `cluster` blocks along `axis` (1: y,
-// 2: z) of the grid, which must hold a whole number of them.
-template <typename... Args>
-cudaError_t launch_clustered(void (*kernel)(Args...), dim3 grid, size_t smem, int axis,
-                             int cluster, cudaStream_t st, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = axis == 1 ? cluster : 1;
-  attr[0].val.clusterDim.z = axis == 2 ? cluster : 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // ---- the splits' merge through distributed shared memory -------------------
@@ -445,7 +426,7 @@ cudaError_t launch_product_g(const ProductArgs& p, int chunks, int splits, cudaS
   cudaError_t e = allow_smem(int8_product_kernel<G, MODE, LN>, &opted);
   if (e != cudaSuccess) return e;
   return launch_clustered(int8_product_kernel<G, MODE, LN>, dim3(chunks * p.N / kStrip, splits),
-                          product_smem(p.kr, p.rows), 1, splits, stream, p);
+                          kThreads, product_smem(p.kr, p.rows), 1, splits, stream, p);
 }
 
 // One n8 group of the mma per eight rows of the step (1 to 4).
@@ -770,8 +751,8 @@ cudaError_t launch_self(SelfArgs a, int H, cudaStream_t st) {
   static bool opted = false;
   cudaError_t e = allow_smem(self_attention_kernel, &opted);
   if (e != cudaSuccess) return e;
-  return launch_clustered(self_attention_kernel, dim3(H, splits), self_smem(a.bk), 1, splits, st,
-                          a);
+  return launch_clustered(self_attention_kernel, dim3(H, splits), kThreads, self_smem(a.bk), 1,
+                          splits, st, a);
 }
 
 }  // namespace

@@ -501,7 +501,7 @@ extern "C" int wis_fused_decode_step(const void* w, const void* s, const void* b
     ca.out = wk.ctx;
     ca.D = D; ca.sx = sx; ca.s_pad = s_pad; ca.s_audio = s_audio; ca.rpw = rpw; ca.cw = cw;
     ca.scale = scale;
-    e = launch_clustered(cross, cross_grid, csmem, 2, cross_splits, st, ca);
+    e = launch_clustered(cross, cross_grid, kThreads, csmem, 2, cross_splits, st, ca);
     if (e != cudaSuccess) break;
 
     // x += ctx·Wco

@@ -9,9 +9,13 @@ self-attention for BK beam rows over unreordered physical cache rows,
 over s ≤ pos, scores and softmax in f32. ``anc (BK, T)`` names each row's
 physical cache row per position; a negative entry reads a zero key and
 value (the TPU kernel's one-hot selection). On the card it is the
-hand-written CUDA of ``csrc/ancestry_attention.cu``, one block per (head,
-row), which reads only the columns up to ``pos``; the eager decoder's
+hand-written CUDA of ``csrc/ancestry_attention.cu``: one block per (head,
+time split, group of rows), the splits of a head one thread-block
+cluster, every physical row's columns up to ``pos`` read once into shared
+memory and selected there per logical row; the eager decoder's
 self-attention (``models/whisper/model.py``) calls it on CUDA tensors.
+The kernel takes head widths that are multiples of 8 up to
+``MAX_HEAD_DIM``.
 
 ``ancestry_attention`` counts one launch per call in
 ``ancestry_attention.launches`` and takes the plain version,
@@ -24,6 +28,9 @@ import torch
 
 from wis_tpu_torch.ops import _build
 from wis_tpu_torch.ops.attention import NEG_INF
+
+#: widest head the kernel takes (a lane holds a quarter of a row's d values)
+MAX_HEAD_DIM = 256
 
 
 def global_rows(anc: torch.Tensor) -> torch.Tensor:
@@ -57,8 +64,9 @@ def _check(cond: bool, msg: str) -> None:
 
 def ancestry_attention(q, k_cache, v_cache, anc, pos: int) -> torch.Tensor:
     """Arguments and result as ``ancestry_attention_plain``. CUDA tensors
-    run ``csrc/ancestry_attention.cu`` (bf16 q and caches, int32 anc); CPU
-    tensors run the plain version."""
+    run ``csrc/ancestry_attention.cu`` (bf16 q and caches, int32 anc, Dh a
+    multiple of 8 up to ``MAX_HEAD_DIM``); CPU tensors run the plain
+    version."""
     if q.device.type == "cpu":
         return ancestry_attention_plain(q, k_cache, v_cache, anc, pos)
     _check(q.device.type == "cuda", f"unsupported device {q.device}")
@@ -70,6 +78,8 @@ def ancestry_attention(q, k_cache, v_cache, anc, pos: int) -> torch.Tensor:
     _check(q.dtype == k_cache.dtype == v_cache.dtype == torch.bfloat16,
            "q and the caches must be bf16")
     _check(anc.dtype == torch.int32 and anc.shape == (bk, t), f"anc must be int32 ({bk}, {t})")
+    _check(dh % 8 == 0 and 0 < dh <= MAX_HEAD_DIM,
+           f"head_dim {dh} is not a multiple of 8 up to {MAX_HEAD_DIM}")
     _check(0 <= pos < t, f"pos={pos} outside the cache's {t} columns")
     for x in (q, k_cache, v_cache, anc):
         _check(x.device == q.device, f"every tensor must be on {q.device}")

@@ -8,9 +8,10 @@ Replaces the TPU kernels ``wis_tpu/ops/flash.py`` ``flash_attention_packed``
 softmax(q·kᵀ/√Dh)·v with f32 scores; keys at or past T never take part.
 The kernel is bound by the tensor cores' rate at the encoder's shapes;
 ``csrc/flash_attention.cu`` says how its design feeds them and keeps the
-T×T scores out of device memory: at head width 64 and 128 a TMA ring and
-``wgmma`` for both products, at every other width a ``mma.sync`` body.
-The same numbers give bit-identical outputs in either layout.
+T×T scores out of device memory: a TMA ring and ``wgmma`` for both
+products, compiled at the head width rounded up to a multiple of 64, the
+columns past the real width zero-filled by TMA. The same numbers give
+bit-identical outputs in either layout.
 
 ``flash_attention_packed`` and ``flash_attention`` launch the kernel for
 CUDA tensors and count the launch in their ``.launches``; they take the
@@ -24,7 +25,7 @@ import torch
 from wis_tpu_torch.ops import _build
 from wis_tpu_torch.ops.attention import merge_heads, mha, qkv_heads
 
-#: widest head the kernel takes (its register tiles are sized per width)
+#: widest head the kernel takes (the widest wgmma tile, 256 columns)
 MAX_HEAD_DIM = 256
 
 
