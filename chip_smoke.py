@@ -85,11 +85,26 @@ exits non-zero without printing a result:
    head, and the eager ``gpt_pass`` path for its first three chunks — each
    with the counters set to 0 just before and read just after; time the
    per-token sampling epilogue both ways;
-9. write a seeded full-width Coqui XTTS v2 ``model.pth`` under ``build/``,
-   serve it from an ``XTTSModel`` whose model_dir holds it (every GPT and
-   vocoder leaf equal to the state dict's conversion, three chunks
-   streamed that differ from the seeded model's), print the load seconds,
-   delete it.
+9. write a seeded full-width Coqui XTTS v2 ``model.pth`` under ``build/``
+   (GPT, HiFi-GAN and conditioning encoder), serve it from an ``XTTSModel``
+   whose model_dir holds it (every GPT, vocoder and conditioning leaf equal
+   to the state dict's conversion, three chunks streamed and a clone that
+   differ from the seeded model's), print the load seconds, delete it;
+10. voice cloning and speaker verification at full width: the XTTS v2
+   conditioning encoder (D 1024, 16 heads, 6 blocks, 32 latents, perceiver
+   8×64, depth 2, seeded) on the log-mel of 6 s of seeded audio, the card's
+   latents held to the same module on the CPU, its device ms (graph replay)
+   and its ms launched eagerly; WavLM base-plus-sv (seeded) embedding 2.5 s
+   and 10 s on the card, each held to the CPU, timed the same two ways; a
+   seeded HF-layout WavLM checkpoint in two BF16
+   shards under ``build/`` loaded through ``load_or_init_wavlm`` (every leaf
+   equal), the load seconds, deleted; ``clone_speaker`` on phase 7's model
+   (median of 3), then phase 8's utterance streamed in the cloned voice to
+   the cap with the counters set to 0 just before and read just after (the
+   fused GPT step once a token, ``int8_matmul`` in the prefill); ``python
+   -m wis_tpu_torch.cli convert-model --selftest xtts``; two seeded voices
+   enrolled in a temporary store through the port's ``SpeakerVerifier``
+   and one verified, the enrol and verify ms.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1693,9 +1708,11 @@ def time_xtts_epilogue(torch, dev, model):
     return eager_ms, fused_ms
 
 
-def stream_xtts(torch, dev, model, counters, path, max_chunks=None, chunks_out=None):
-    """TTS_TEXT through ``model.inference_stream`` (zero voice, default
-    knobs, the token floor) with every counter set to 0 just before; →
+def stream_xtts(torch, dev, model, counters, path, max_chunks=None, chunks_out=None,
+                voice=None):
+    """TTS_TEXT through ``model.inference_stream`` (a zero voice unless
+    ``voice``, a ``clone_speaker`` result, is given; default knobs, the
+    token floor) with every counter set to 0 just before; →
     (the counts just after, (second chunk, worst slack, total) in ms).
     Prints the time to the first and second chunk
     and the worst slack to playback: playback starts when the first chunk
@@ -1705,15 +1722,19 @@ def stream_xtts(torch, dev, model, counters, path, max_chunks=None, chunks_out=N
     the cap's samples. ``chunks_out``, a list, receives the chunks."""
     cfg = model.cfg
     voc, cap = cfg.vocoder, cfg.gpt.max_audio_tokens
-    voice = np.zeros((cfg.cond_len, cfg.gpt.d_model), np.float32)
-    speaker = np.zeros(cfg.vocoder.cond_dim, np.float32)
+    if voice is None:
+        latent = np.zeros((cfg.cond_len, cfg.gpt.d_model), np.float32)
+        speaker = np.zeros(cfg.vocoder.cond_dim, np.float32)
+    else:
+        latent = np.asarray(voice["gpt_cond_latent"], np.float32)
+        speaker = np.asarray(voice["speaker_embedding"], np.float32)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
     arrivals, chunks = [], []
-    stream = model.inference_stream(TTS_TEXT, "en", voice, speaker,
+    stream = model.inference_stream(TTS_TEXT, "en", latent, speaker,
                                     stream_chunk_size=TTS_CHUNK, min_audio_tokens=TTS_MIN_TOKENS)
     for chunk in stream:
         arrivals.append(time.perf_counter() - t0)
@@ -2092,14 +2113,14 @@ def _seeded_hf_checkpoint(torch, dev, cfg, seed):
     return out
 
 
-def _write_safetensors(path, tensors):
-    """numpy float16 tensors as one safetensors file — the format in a few
-    lines (the card's machine has no ``safetensors``): an 8-byte
-    little-endian header length, the JSON header padded to 8 bytes, then
-    each tensor's bytes in order."""
+def _write_safetensors(path, tensors, dtype="F16"):
+    """numpy tensors holding ``dtype``'s bits (float16 for F16, uint16 for
+    BF16) as one safetensors file — the format in a few lines (the card's
+    machine has no ``safetensors``): an 8-byte little-endian header length,
+    the JSON header padded to 8 bytes, then each tensor's bytes in order."""
     header, offset = {"__metadata__": {"format": "pt"}}, 0
     for name, a in tensors.items():
-        header[name] = {"dtype": "F16", "shape": list(a.shape),
+        header[name] = {"dtype": dtype, "shape": list(a.shape),
                         "data_offsets": [offset, offset + a.nbytes]}
         offset += a.nbytes
     raw = json.dumps(header).encode()
@@ -2113,10 +2134,15 @@ def _write_safetensors(path, tensors):
 
 def _tree_equal(a, b):
     """(leaves, leaves bit-equal) of two parameter trees."""
-    if isinstance(a, dict):
-        if a.keys() != b.keys():
-            return 1, 0
-        counts = [_tree_equal(a[k], b[k]) for k in a]
+    if isinstance(a, (dict, list, tuple)):
+        if isinstance(a, dict):
+            if a.keys() != b.keys():
+                return 1, 0
+            counts = [_tree_equal(a[k], b[k]) for k in a]
+        else:
+            if len(a) != len(b):
+                return 1, 0
+            counts = [_tree_equal(x, y) for x, y in zip(a, b)]
         return sum(n for n, _ in counts), sum(e for _, e in counts)
     return 1, int(a.dtype == b.dtype and a.shape == b.shape and bool((a == b).all()))
 
@@ -2187,32 +2213,42 @@ def check_checkpoint_round_trip(torch, dev, settings):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def check_xtts_checkpoint(torch, dev, seeded_chunks, counters):
+def check_xtts_checkpoint(torch, dev, seeded_chunks, counters, seeded):
     """A seeded Coqui XTTS v2 ``model.pth`` at full width (30 layers,
-    D = 1024, weight-normed HiFi-GAN) written under build/, served by an
-    ``XTTSModel`` whose model_dir holds it: every GPT and vocoder leaf on
-    the device equal to the state dict's host conversion (the int8 leaves
-    to its quantization on the device, as the model quantizes; the token
-    embedding and the head also to the state dict's own values rounded to
-    bf16), and three chunks streamed that differ from the seeded model's."""
-    from wis_tpu_torch.models.xtts.convert import gpt_from_coqui, hifigan_from_coqui
+    D = 1024, weight-normed HiFi-GAN, the conditioning encoder) written
+    under build/, served by an ``XTTSModel`` whose model_dir holds it: every
+    GPT and vocoder leaf on the device equal to the state dict's host
+    conversion (the int8 leaves to its quantization on the device, as the
+    model quantizes; the token embedding and the head also to the state
+    dict's own values rounded to bf16), every conditioning leaf equal to
+    ``conditioning_from_coqui`` on the host, three chunks streamed and a
+    clone of CLONE_AUDIO that differ from the ``seeded`` model's."""
+    from wis_tpu_torch.models.xtts.convert import (
+        conditioning_from_coqui,
+        gpt_from_coqui,
+        hifigan_from_coqui,
+    )
     from wis_tpu_torch.models.xtts.model import XTTSConfig, XTTSModel
     from wis_tpu_torch.ops.quant import is_quantized, quantize_weight
     from wis_tpu_torch.utils.selftest import synthetic_coqui_sd
 
     cfg = XTTSConfig()
+    cond_cfg = seeded._cond_cfg()
     root = os.path.join(REPO, "build", "xtts_checkpoint_smoke")
     os.makedirs(root, exist_ok=True)
     try:
         t0 = time.perf_counter()
-        sd = synthetic_coqui_sd(cfg.gpt, cfg.vocoder, seed=1234)
+        sd = synthetic_coqui_sd(cfg.gpt, cfg.vocoder, cond_cfg, seed=1234)
         t_make = time.perf_counter() - t0
         t0 = time.perf_counter()
         torch.save({"model": sd}, os.path.join(root, "model.pth"))
         t_write = time.perf_counter() - t0
         size = os.path.getsize(os.path.join(root, "model.pth"))
+        # the seeded model's clone first: it builds the embedder both share
+        seeded_clone = np.asarray(seeded.clone_speaker(CLONE_AUDIO)["gpt_cond_latent"],
+                                  np.float32)
         t0 = time.perf_counter()
-        model = XTTSModel(dev, model_dir=root)
+        model = XTTSModel(dev, model_dir=root, embed_fn=seeded._embed_fn)
         torch.cuda.synchronize()
         t_load = time.perf_counter() - t0
         print(f"xtts checkpoint: {len(sd)} tensors, {size / 1e9:.3f} GB f32 made in {t_make:.2f} s, "
@@ -2244,17 +2280,271 @@ def check_xtts_checkpoint(torch, dev, seeded_chunks, counters):
                            sd["gpt.text_embedding.weight"].bfloat16())
                and torch.equal(model.gpt_params["head_w"].cpu(),
                                sd["gpt.mel_head.weight"].t().bfloat16()))
+        cond_tree = conditioning_from_coqui(sd, cond_cfg, torch.float32, "cpu")
+        unmapped = cond_tree.pop("_unmapped")
+        cond_want = dict(leaves(cond_tree, "cond"))
+        cond_got = dict(leaves(model._cond_params or {}, "cond"))
+        cond_equal = sum(leaf.device == dev and torch.equal(leaf.cpu(), cond_want[name])
+                         for name, leaf in cond_got.items() if name in cond_want)
         chunks = []
         stream_xtts(torch, dev, model, counters, "checkpoint (first 3 chunks)", max_chunks=3,
                     chunks_out=chunks)
         differs = any(a.shape != b.shape or not np.array_equal(a, b)
                       for a, b in zip(chunks, seeded_chunks))
+        clone = np.asarray(model.clone_speaker(CLONE_AUDIO)["gpt_cond_latent"], np.float32)
+        clone_differs = clone.shape == seeded_clone.shape and not np.array_equal(clone,
+                                                                                 seeded_clone)
         print(f"xtts checkpoint: {equal} of {len(got)} leaves equal to the state dict's "
               f"conversion (set {len(want)}); token embedding and head equal to the state "
-              f"dict's values: {own}; stream differs from the seeded weights': {differs}")
+              f"dict's values: {own}; conditioning: {cond_equal} of {len(cond_got)} leaves "
+              f"equal to conditioning_from_coqui (set {len(cond_want)}, unmapped {unmapped}); "
+              f"stream differs from the seeded weights': {differs}; clone differs: "
+              f"{clone_differs}")
         if not (equal == len(got) == len(want) and own and differs):
             raise AssertionError("xtts checkpoint: the model does not serve the checkpoint")
+        if not (cond_equal == len(cond_got) == len(cond_want) and not unmapped
+                and clone_differs):
+            raise AssertionError("xtts checkpoint: the model does not clone from the checkpoint")
         del model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------- #
+# Phase 10: voice cloning and speaker verification
+# --------------------------------------------------------------------------- #
+def _voice_audio(seconds: float, f0: float, seed: int) -> np.ndarray:
+    """A seeded voiced signal at 16 kHz: a harmonic stack on f0 with seeded
+    phases, a syllable envelope and a little seeded noise, peak 0.2."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * SAMPLE_RATE)) / SAMPLE_RATE
+    wav = sum(np.sin(2 * np.pi * k * f0 * t + rng.uniform(0, 2 * np.pi)) / k for k in range(1, 20))
+    wav = wav * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t)) + 0.01 * rng.standard_normal(t.shape)
+    return (0.2 * wav / np.abs(wav).max()).astype(np.float32)
+
+
+#: the reference audio every clone of this script is made from
+CLONE_AUDIO = _voice_audio(6.0, 140.0, seed=61)
+#: relative L2 bounds of the card's f32 results against the CPU's (TF32 is
+#: off on the card, so only the order of the f32 sums differs)
+COND_REL, WAVLM_REL = 1e-4, 1e-4
+
+
+def _event_ms(torch, fn, reps=5):
+    """Median ms of one fn() call launched eagerly, each of `reps` calls
+    between CUDA events after a warm-up call: the card's stream time with
+    the gaps where it waits for the host's launches (``_median_ms``, a
+    graph replay, leaves them out)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _rel_l2(torch, got, want) -> float:
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+
+def check_conditioning(torch, dev):
+    """The XTTS v2 conditioning encoder at full width (seeded) on the log-mel
+    of CLONE_AUDIO (padded to 30 s, as ``clone_speaker`` does), on the card
+    and on the CPU: the latents within COND_REL, the card's device ms."""
+    from wis_tpu_torch.audio.mel import log_mel, pad_or_trim
+    from wis_tpu_torch.models.xtts.conditioning import (
+        ConditioningConfig,
+        conditioning_forward,
+        random_conditioning,
+    )
+
+    cfg = ConditioningConfig()
+    host = random_conditioning(cfg, seed=0)
+    params = _tree_to(host, dev)
+    with torch.inference_mode():
+        mel = log_mel(torch.from_numpy(pad_or_trim(CLONE_AUDIO)).to(dev))[None]
+        got = conditioning_forward(params, mel, cfg)
+        ms = _median_ms(lambda: conditioning_forward(params, mel, cfg), reps=2, replays=5)
+        eager_ms = _event_ms(torch, lambda: conditioning_forward(params, mel, cfg))
+        t0 = time.perf_counter()
+        want = conditioning_forward(host, mel.cpu(), cfg)
+        cpu_s = time.perf_counter() - t0
+    err = _rel_l2(torch, got, want)
+    print(f"conditioning encoder (D {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_blocks} blocks, "
+          f"{cfg.n_latents} latents, perceiver {cfg.perceiver_heads}x{cfg.perceiver_dim_head} "
+          f"depth {cfg.perceiver_depth}) on mel {tuple(mel.shape)} of 6 s: latents "
+          f"{tuple(got.shape)}, relative L2 to the CPU {err:.3e} (bound {COND_REL:g}), finite "
+          f"{bool(torch.isfinite(got).all())}; a clone's conditioning: device {ms:.3f} ms "
+          f"(CUDA-graph replay), {eager_ms:.3f} ms launched eagerly (between CUDA events, "
+          f"median of 5); CPU {cpu_s:.2f} s")
+    expect(f"conditioning latents {err:.3e} off the CPU's",
+           err <= COND_REL and bool(torch.isfinite(got).all()))
+
+
+def _seeded_hf_wavlm(torch, dev, cfg, seed):
+    """A seeded HF ``WavLMForXVector`` state dict of ``cfg`` in bf16 on the
+    CPU, drawn on the card: weights at 1/sqrt(fan_in), biases 0.02, vector
+    gains near 1."""
+    from wis_tpu_torch.utils.selftest import hf_wavlm_shapes
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, shape in hf_wavlm_shapes(cfg).items():
+        a = torch.randn(shape, generator=g, device=dev)
+        if name.endswith("bias"):
+            a = a * 0.02
+        elif len(shape) == 1 or name.endswith(("original0", "gru_rel_pos_const")):
+            a = a * 0.1 + 1.0
+        else:
+            a = a / float(np.prod(shape[1:])) ** 0.5
+        out[name] = a.to(torch.bfloat16).cpu()
+    return out
+
+
+def check_wavlm(torch, dev):
+    """WavLM base-plus-sv (seeded) embeds 2.5 s and 10 s on the card and on
+    the CPU (within WAVLM_REL, the card's device ms); then a seeded
+    HF-layout checkpoint in two BF16 shards under build/ loads through
+    ``load_or_init_wavlm`` with every leaf equal to ``params_from_hf_wavlm``
+    of the same tensors in memory, and is deleted."""
+    from wis_tpu_torch.models.wavlm.model import (
+        BASE_PLUS_SV,
+        load_or_init_wavlm,
+        params_from_hf_wavlm,
+        random_wavlm,
+        xvector_embed,
+    )
+    from wis_tpu_torch.utils.selftest import _leaves
+
+    cfg = BASE_PLUS_SV
+    host = random_wavlm(cfg, seed=0)
+    params = _tree_to(host, dev)
+    n_params = sum(t.numel() for t in _leaves(host))
+    for seconds, seed in ((2.5, 81), (10.0, 82)):
+        audio = torch.from_numpy(_voice_audio(seconds, 120.0, seed))[None]
+        a_dev = audio.to(dev)
+        with torch.inference_mode():
+            got = xvector_embed(params, a_dev, cfg)
+            ms = _median_ms(lambda: xvector_embed(params, a_dev, cfg), reps=3, replays=5)
+            eager_ms = _event_ms(torch, lambda: xvector_embed(params, a_dev, cfg))
+            t0 = time.perf_counter()
+            want = xvector_embed(host, audio, cfg)
+            cpu_s = time.perf_counter() - t0
+        err = _rel_l2(torch, got, want)
+        print(f"wavlm base-plus-sv ({n_params:,} parameters, seeded) embeds {seconds} s: "
+              f"{tuple(got.shape)}, relative L2 to the CPU {err:.3e} (bound {WAVLM_REL:g}); "
+              f"an embedding: device {ms:.3f} ms (CUDA-graph replay), {eager_ms:.3f} ms "
+              f"launched eagerly (between CUDA events, median of 5); CPU {cpu_s:.2f} s")
+        expect(f"wavlm embedding of {seconds} s {err:.3e} off the CPU's",
+               err <= WAVLM_REL and bool(torch.isfinite(got).all()))
+
+    root = os.path.join(REPO, "build", "wavlm_checkpoint_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        sd = _seeded_hf_wavlm(torch, dev, cfg, seed=19)
+        names = list(sd)
+        for i, part in enumerate((names[: len(names) // 2], names[len(names) // 2:])):
+            _write_safetensors(os.path.join(root, f"model-{i + 1:05d}-of-00002.safetensors"),
+                               {n: sd[n].view(torch.int16).numpy() for n in part}, "BF16")
+        n_bytes = sum(t.numel() * 2 for t in sd.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_or_init_wavlm(root, cfg, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        want = params_from_hf_wavlm(sd, cfg, device=dev)
+        leaves, equal = _tree_equal(loaded, want)
+        print(f"wavlm checkpoint: {len(names)} tensors, {n_bytes / 1e6:.1f} MB of BF16 in 2 "
+              f"shards under build/; load_or_init_wavlm on {dev} {load_s:.2f} s, {equal} of "
+              f"{leaves} leaves equal to params_from_hf_wavlm in memory")
+        expect("wavlm checkpoint leaves differ", equal == leaves)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def check_clone(torch, dev, xtts, counters):
+    """``clone_speaker`` of CLONE_AUDIO on phase 7's model (median of 3; the
+    embedder was built by phase 9's clone), then TTS_TEXT streamed in the
+    cloned voice to the cap with the counters set to 0 just before:
+    → the counts just after."""
+    times, voice = [], None
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        voice = xtts.clone_speaker(CLONE_AUDIO)
+        times.append((time.perf_counter() - t0) * 1e3)
+    lat = np.asarray(voice["gpt_cond_latent"], np.float32)
+    emb = np.asarray(voice["speaker_embedding"], np.float32)
+    print(f"clone_speaker (6 s, XTTS v2 conditioning + WavLM x-vector on {dev}): median "
+          f"{statistics.median(times):.2f} ms ({', '.join(f'{t:.2f}' for t in times)}); "
+          f"latents {lat.shape}, embedding {emb.shape}, norm {np.linalg.norm(emb):.4f}")
+    expect("clone shapes", lat.shape == (xtts.cfg.cond_len, xtts.cfg.gpt.d_model)
+           and emb.shape == (xtts.cfg.vocoder.cond_dim,) and np.isfinite(lat).all()
+           and abs(np.linalg.norm(emb) - 1.0) < 1e-2)
+    counts = stream_xtts(torch, dev, xtts, counters, "cloned voice (fused step)", voice=voice)[0]
+    return counts
+
+
+def check_xtts_selftest_cli():
+    """``python -m wis_tpu_torch.cli convert-model --selftest xtts`` (on the
+    card, the port's default): the XTTS v2 key list converted, every
+    conditioning key read, one vocoder call, prefill and conditioning pass."""
+    cmd = [sys.executable, "-m", "wis_tpu_torch.cli", "convert-model", "--selftest", "xtts"]
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    line = res.stdout.strip().splitlines()[-1] if res.stdout.strip() else ""
+    print(f"{' '.join(cmd[1:])}: exit {res.returncode}, {line}")
+    if res.returncode != 0 or json.loads(line).get("selftest") != "ok":
+        raise AssertionError(f"convert-model --selftest xtts failed: {res.stderr[-3000:]}")
+
+
+def check_sv(torch, dev):
+    """Two seeded voices enrolled through the port's ``SpeakerVerifier`` (its
+    default embedder: WavLM base-plus-sv on the card, seeded as no checkpoint
+    is there) in a store under build/, then one verified; the store is
+    deleted."""
+    from wis_tpu_torch.server.sv import SpeakerVerifier
+    from wis_tpu_torch.settings import APISettings
+
+    root = os.path.join(REPO, "build", "sv_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        verifier = SpeakerVerifier(APISettings(sv_speaker_dir=root), device=dev)
+        voices = {"alice": _voice_audio(4.0, 210.0, 91), "bob": _voice_audio(4.0, 105.0, 92)}
+        t0 = time.perf_counter()
+        verifier._embed(voices["bob"])
+        first_s = time.perf_counter() - t0
+        enrol = {}
+        for name, audio in voices.items():
+            t0 = time.perf_counter()
+            verifier.enroll(name, audio)
+            enrol[name] = (time.perf_counter() - t0) * 1e3
+        verify = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            hits = verifier.verify(voices["alice"])
+            verify.append((time.perf_counter() - t0) * 1e3)
+        print(f"speaker verification on {dev}: embedder built and first embedding in "
+              f"{first_s:.2f} s; enrol {', '.join(f'{n} {t:.2f} ms' for n, t in enrol.items())}; "
+              f"verify alice median {statistics.median(verify):.2f} ms "
+              f"({', '.join(f'{t:.2f}' for t in verify)}): {hits}")
+        expect(f"verify {hits}", sorted(os.listdir(root)) == ["alice.npy", "bob.npy"]
+               and hits.get("alice", 0.0) >= 0.99)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2377,14 +2667,24 @@ def main() -> int:
     head_n = stream_xtts(torch, dev, xtts, tts_counters, "fused-head")[0]
     if not head_n[0] == head_n[1] == xtts.cfg.gpt.max_audio_tokens:
         raise AssertionError(f"fused-head stream ran {head_n[0]} steps / {head_n[1]} heads")
-    del xtts
+    xtts.fused_head = False
     eager = XTTSModel(dev, fused="off")
     eager_n = stream_xtts(torch, dev, eager, tts_counters, "eager (first 3 chunks)",
                           max_chunks=3)[0]
     if any(eager_n):
         raise AssertionError(f"the eager stream launched fused kernels: {eager_n}")
     del eager
-    check_xtts_checkpoint(torch, dev, seeded_chunks[:3], tts_counters)
+    check_xtts_checkpoint(torch, dev, seeded_chunks[:3], tts_counters, xtts)
+
+    check_conditioning(torch, dev)
+    check_wavlm(torch, dev)
+    clone_n = check_clone(torch, dev, xtts, tts_counters + (int8_matmul,))
+    if not (clone_n[0] == xtts.cfg.gpt.max_audio_tokens and clone_n[1] == 0 and clone_n[2] > 0):
+        raise AssertionError(f"the cloned-voice stream ran {clone_n[0]} steps / {clone_n[1]} "
+                             f"heads / {clone_n[2]} int8_matmul")
+    del xtts
+    check_xtts_selftest_cli()
+    check_sv(torch, dev)
 
     rows = [
         dict(name="layer_norm", source="wis_tpu_torch/csrc/layernorm.cu",

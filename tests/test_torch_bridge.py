@@ -197,6 +197,10 @@ def test_settings_defaults_equal():
     port, ref = APISettings(), JaxSettings()
     for f in dataclasses.fields(APISettings):
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    # the speaker verifier's fields
+    assert (port.support_sv, port.sv_threshold, port.sv_speaker_dir) == (
+        None, 0.75, "speakers/voice_auth") == (
+        ref.support_sv, ref.sv_threshold, ref.sv_speaker_dir)
     assert port.batch_bucket_list() == ref.batch_bucket_list()
     assert port.audio_second_bucket_list() == ref.audio_second_bucket_list()
     for beam in (1, 2, 3, 4, 5):
@@ -234,7 +238,8 @@ def test_kernel_wrappers_have_no_fallback():
 
 
 def test_port_imports_no_jax_pydantic_or_aiohttp():
-    """Importing every module of the port, chip_smoke.py and chip_profile.py
+    """Importing every module of the port (the conditioning encoder, WavLM
+    and the speaker verifier among them), chip_smoke.py and chip_profile.py
     in a fresh interpreter loads neither JAX, pydantic, aiohttp nor the wis_tpu
     package — the card's machine has none of them."""
     code = (
@@ -244,6 +249,9 @@ def test_port_imports_no_jax_pydantic_or_aiohttp():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'pydantic', 'aiohttp', 'wis_tpu'))\n"
+        "new = ('wis_tpu_torch.models.xtts.conditioning', 'wis_tpu_torch.models.wavlm',\n"
+        "       'wis_tpu_torch.models.wavlm.model', 'wis_tpu_torch.server.sv')\n"
+        "bad += [m for m in new if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('wis_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

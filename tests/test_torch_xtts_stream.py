@@ -4,7 +4,7 @@ tests' micro config with the same seeded weights: the greedy stream on the
 fused path (the kernels' plain versions) and on the eager path, through a
 cache-bucket grow and the remainder chunk at the token cap; a sampled
 stream given JAX's key chain as gumbel rows; and the port's model served by
-wis_tpu's TTS app.
+wis_tpu's TTS app, cloning voices too.
 
 Tolerance: the same chunk count and lengths, and each chunk's samples
 within 1e-3 (f32 activations over int8 weights; the GPT latents agree to
@@ -129,12 +129,24 @@ def test_queued_chunks_change_nothing(fused):
         assert np.array_equal(a, b)
 
 
+def _micro_embedder():
+    """The port's x-vector at tests/test_wavlm.py's micro WavLM (seeded)."""
+    from wis_tpu_torch.models.wavlm.model import WavLMConfig, default_embedder
+
+    return default_embedder(None, "cpu", cfg=WavLMConfig(
+        hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64, conv_dim=(16,) * 7,
+        num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4, num_buckets=40,
+        max_bucket_distance=100, tdnn_dim=(24, 24, 24, 24, 48), xvector_output_dim=24))
+
+
 def test_stream_surface():
     """speed resamples each chunk; text splitting streams per sentence;
-    synthesize concatenates; clone_speaker names the slice it waits for."""
+    synthesize concatenates; clone_speaker returns a voice of the model's
+    shapes."""
     _, tcfg = _cfgs(40)
     latent, speaker = _voice()
-    port = tm.XTTSModel("cpu", cfg=tcfg, dtype=torch.float32, fused="off")
+    port = tm.XTTSModel("cpu", cfg=tcfg, dtype=torch.float32, fused="off",
+                        embed_fn=_micro_embedder())
     kw = dict(stream_chunk_size=8, overlap_wav_len=0, do_sample=False, min_audio_tokens=16)
     base = port.synthesize("hi there", "en", latent, speaker, **kw)
     fast = port.synthesize("hi there", "en", latent, speaker, speed=2.0, **kw)
@@ -142,8 +154,11 @@ def test_stream_surface():
     pieces = list(port.inference_stream_split("Hi. Bye.", "en", latent, speaker,
                                               enable_text_splitting=True, **kw))
     assert len(pieces) >= 2
-    with pytest.raises(NotImplementedError, match="WavLM"):
-        port.clone_speaker(np.zeros(16000, np.float32))
+    voice = port.clone_speaker(np.random.default_rng(6).standard_normal(16000).astype(np.float32))
+    lat = np.asarray(voice["gpt_cond_latent"], np.float32)
+    emb = np.asarray(voice["speaker_embedding"], np.float32)
+    assert lat.shape == (tcfg.cond_len, tcfg.gpt.d_model) and emb.shape == (tcfg.vocoder.cond_dim,)
+    assert np.isfinite(lat).all() and abs(np.linalg.norm(emb) - 1.0) < 1e-2
     assert np.array_equal(port.tokenize("Pay $5, Dr. Lee!", "en"),
                           port.tokenize("pay five dollars, doctor lee!", "en"))
 
@@ -200,5 +215,53 @@ def test_served_by_the_tts_app(tmp_path):
         assert _wav_ok(await resp.read()) == cap_samples
         resp = await client.get("/api/tts?text=hi&language=xx")
         assert resp.status == 400
+
+    _serve(port, tmp_path, go)
+
+
+def _wav_upload(seconds: float = 2.0) -> bytes:
+    import io
+    import wave
+
+    t = np.arange(int(seconds * 16000)) / 16000
+    pcm = (0.3 * np.sin(2 * np.pi * 180 * t) * 32767).astype("<i2")
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+    return buf.getvalue()
+
+
+def test_the_tts_app_clones_through_the_port(tmp_path):
+    """POST /clone_speaker returns the port's voice, (cond_len, D) latents
+    and a cond_dim embedding; GET /api/tts with an empty store provisions
+    the built-in voices through clone_speaker and streams a well-formed WAV."""
+    import aiohttp
+
+    _, tcfg = _cfgs(40)
+    port = tm.XTTSModel("cpu", cfg=tcfg, dtype=torch.float32, fused="on",
+                        embed_fn=_micro_embedder())
+    voc = tcfg.vocoder
+    cap_samples = 40 * voc.gpt_code_stride * voc.sample_rate // voc.input_sample_rate
+
+    async def go(client):
+        form = aiohttp.FormData()
+        form.add_field("wav_file", _wav_upload(), filename="v.wav")
+        resp = await client.post("/clone_speaker", data=form)
+        assert resp.status == 200
+        voice = await resp.json()
+        assert np.asarray(voice["gpt_cond_latent"]).shape == (tcfg.cond_len, tcfg.gpt.d_model)
+        assert np.asarray(voice["speaker_embedding"]).shape == (voc.cond_dim,)
+        assert not list(tmp_path.iterdir())
+        resp = await client.get("/api/tts?text=hello&language=en&speaker=default"
+                                "&stream_chunk_size=8&do_sample=false&min_audio_tokens=40")
+        assert resp.status == 200
+        assert _wav_ok(await resp.read()) == cap_samples
+        assert sorted(p.name for p in tmp_path.iterdir()) == [
+            "CLB.json", "default.json", "female.json", "male.json"]
+        saved = json.loads((tmp_path / "female.json").read_text())
+        assert np.asarray(saved["gpt_cond_latent"]).shape == (tcfg.cond_len, tcfg.gpt.d_model)
 
     _serve(port, tmp_path, go)

@@ -1,12 +1,15 @@
 """Command line of the PyTorch port.
 
-    python -m wis_tpu_torch.cli convert-model --selftest <size> [--no-forward]
+    python -m wis_tpu_torch.cli convert-model --selftest <size|xtts> [--no-forward]
     python -m wis_tpu_torch.cli convert-model <src> --size <size>
 
-``convert-model`` is the port's counterpart of ``wisctl convert-model``
-(Whisper sizes): ``--selftest`` converts a synthetic full-dims HF
-checkpoint and runs one encoder pass plus the cross-KV projection
-(``utils/selftest.py``), printing the report as one JSON line; with a
+``convert-model`` is the port's counterpart of ``wisctl convert-model``:
+``--selftest <size>`` converts a synthetic full-dims HF Whisper
+checkpoint and runs one encoder pass plus the cross-KV projection,
+``--selftest xtts`` a synthetic XTTS v2 ``model.pth`` (GPT, HiFi-GAN and
+conditioning encoder) and runs one vocoder call, one GPT prefill and one
+conditioning pass (``utils/selftest.py``), printing the report as one JSON
+line; with a
 checkpoint directory ``<src>`` it converts the safetensors there and runs
 the encoder once. Both print what ``wisctl`` prints. Per the port's device
 policy both run on the card unless ``--device cpu`` asks for the CPU
@@ -22,6 +25,12 @@ from typing import List, Optional
 
 
 def cmd_convert_model(args) -> int:
+    if args.selftest == "xtts":
+        from wis_tpu_torch.utils.selftest import xtts_selftest
+
+        report = xtts_selftest(forward=not args.no_forward, device=args.device)
+        print(json.dumps({"selftest": "ok", **report}))
+        return 0
     if args.selftest:
         from wis_tpu_torch.utils.selftest import whisper_selftest
 
@@ -65,6 +74,10 @@ def _size(name: str) -> str:
     return name
 
 
+def _selftest_size(name: str) -> str:
+    return name if name == "xtts" else _size(name)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m wis_tpu_torch.cli")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -76,11 +89,11 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("src", nargs="?", default=None,
                    help="HF checkpoint dir (omit with --selftest)")
     c.add_argument("--size", type=_size, help="whisper size of <src>")
-    c.add_argument("--selftest", metavar="SIZE", type=_size,
+    c.add_argument("--selftest", metavar="SIZE", type=_selftest_size,
                    help="synthesize a full-dims checkpoint of this whisper size "
-                   "and convert it")
+                   "(or of XTTS v2: xtts) and convert it")
     c.add_argument("--no-forward", action="store_true",
-                   help="with --selftest: skip the encoder pass")
+                   help="with --selftest: skip the forward passes")
     c.add_argument("--device", default="cuda",
                    help="cuda (the default), cuda:N or cpu")
     c.set_defaults(fn=cmd_convert_model)

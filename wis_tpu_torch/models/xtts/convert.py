@@ -1,5 +1,5 @@
 """Coqui XTTS v2 checkpoint → the port's XTTS trees (port of
-``wis_tpu/models/xtts/convert.py``, its GPT and HiFi-GAN half).
+``wis_tpu/models/xtts/convert.py``).
 
 ``XTTSModel`` reads ``<model_dir>/model.pth`` with
 :func:`load_coqui_checkpoint` and converts it here:
@@ -12,19 +12,23 @@
 - HiFi-GAN: ``hifigan_decoder.waveform_decoder.*`` with weight-norm in
   either key style (``weight_g``/``weight_v`` or
   ``parametrizations.weight.original0/1``), the convolutions to the
-  JAX package's (k, in, out) layout, the transposed ones to (k, out, in).
+  JAX package's (k, in, out) layout, the transposed ones to (k, out, in);
+- the conditioning encoder: ``gpt.conditioning_encoder.*`` (the 1×1
+  ``init`` convolution and the AttentionBlocks' norm, qkv and proj_out)
+  and ``gpt.conditioning_perceiver.*`` (latents, attention and
+  feedforward layers, the final RMSNorm; RMSNorm gains under ``gamma`` or
+  ``g``), with every key under the two prefixes that is left unread
+  reported in ``_unmapped`` and logged.
 
-The trees are the ones ``gpt.random_gpt`` and ``hifigan.random_hifigan``
-build (the position tables keep the checkpoint's extra rows), on the
-requested device and in its dtype. Every leaf equals the JAX package's
+The trees are the ones ``gpt.random_gpt``, ``hifigan.random_hifigan`` and
+``conditioning.random_conditioning`` build (the position tables keep the
+checkpoint's extra rows), on the requested device and in its dtype. Every
+leaf equals the JAX package's
 conversion of the same state dict: the same casts from the checkpoint's
 values, and the weight-norm arithmetic in numpy, as there, at the
 tensor's own precision (f32 for a bf16 tensor, which numpy cannot hold).
 Unlike the JAX loader, :func:`load_coqui_checkpoint` keeps torch tensors,
 so a bf16 ``model.pth`` loads too.
-
-The conditioning encoder (``conditioning_from_coqui``) comes with voice
-cloning.
 """
 
 from __future__ import annotations
@@ -171,6 +175,91 @@ def hifigan_from_coqui(sd: StateDict, cfg: HiFiGANConfig, dtype=torch.bfloat16,
         ch = out_ch
     params["post_w"] = conv(p + "conv_post")
     params["post_b"] = bias(p + "conv_post")
+    return params
+
+
+def conditioning_from_coqui(sd: StateDict, cfg, dtype=torch.float32,
+                            device: DeviceLike = "cpu") -> Dict:
+    """Convert ``gpt.conditioning_encoder.*`` and ``gpt.conditioning_perceiver.*``
+    (XTTS v2: the tortoise ConditioningEncoder, an ``init`` 1×1 convolution
+    and AttentionBlocks [norm, qkv, proj_out]; the PerceiverResampler,
+    ``latents`` and ``layers.{i}.[0 = Attention(norm, to_q, to_kv, to_out) |
+    1 = FeedForward(0 = RMSNorm, 1 = Linear, 3 = Linear)]`` and a final
+    ``norm``) into ``conditioning.random_conditioning``'s tree.
+
+    RMSNorm gains are looked up under ``gamma`` and ``g``; every key under
+    the two prefixes that is left unread comes back, sorted, in
+    ``params["_unmapped"]`` and is logged, so a checkpoint's naming drift
+    shows instead of degrading the voice in silence."""
+    consumed = set()
+
+    def take(key, *alts, default=None):
+        for k in (key,) + alts:
+            if k in sd:
+                consumed.add(k)
+                return sd[k]
+        if default is not None:
+            return default
+        raise KeyError(key)
+
+    def put(t, dt=dtype):
+        return t.to(dtype=dt).contiguous().to(device)
+
+    def conv1x1(t):  # conv1d (out, in, 1) → (in, out)
+        return put(t.squeeze(-1).t())
+
+    f32 = torch.float32
+    p = "gpt.conditioning_encoder."
+    params = {
+        "init_w": conv1x1(take(p + "init.weight")),  # (D, n_mels, 1) → (n_mels, D)
+        "init_b": put(take(p + "init.bias")),
+        "blocks": [],
+        "perceiver": [],
+    }
+    for i in range(cfg.n_blocks):
+        b = p + f"attn.{i}."
+        params["blocks"].append({
+            "norm_g": put(take(b + "norm.weight"), f32),
+            "norm_b": put(take(b + "norm.bias"), f32),
+            "qkv_w": conv1x1(take(b + "qkv.weight")),  # (3D, D, 1) → (D, 3D)
+            "qkv_b": put(take(b + "qkv.bias")),
+            "proj_w": conv1x1(take(b + "proj_out.weight")),
+            "proj_b": put(take(b + "proj_out.bias")),
+        })
+
+    q = "gpt.conditioning_perceiver."
+    ones = torch.ones(cfg.d_model)
+    none = torch.zeros(0)
+    params["latents"] = put(take(q + "latents"))
+    for i in range(cfg.perceiver_depth):
+        a = q + f"layers.{i}.0."
+        f = q + f"layers.{i}.1."
+        kv = take(a + "to_kv.weight")  # (2·inner, D)
+        inner = kv.shape[0] // 2
+        blk = {
+            "attn_norm_g": put(take(a + "norm.gamma", a + "norm.g", default=ones), f32),
+            "q_w": put(take(a + "to_q.weight").t()),
+            "k_w": put(kv[:inner].t()),
+            "v_w": put(kv[inner:].t()),
+            "o_w": put(take(a + "to_out.weight").t()),
+            "ff_norm_g": put(take(f + "0.gamma", f + "0.g", default=ones), f32),
+            "ff1_w": put(take(f + "1.weight").t()),
+            "ff1_b": put(take(f + "1.bias", default=none)),
+            "ff2_w": put(take(f + "3.weight").t()),
+            "ff2_b": put(take(f + "3.bias", default=none)),
+        }
+        # bias-free checkpoint linears → zero biases at the right width
+        for wk, bk in (("ff1_w", "ff1_b"), ("ff2_w", "ff2_b")):
+            if blk[bk].shape[0] != blk[wk].shape[1]:
+                blk[bk] = put(torch.zeros(blk[wk].shape[1]))
+        params["perceiver"].append(blk)
+    params["out_norm_g"] = put(take(q + "norm.gamma", q + "norm.g", default=ones), f32)
+
+    unmapped = sorted(k for k in sd if k.startswith((p, q)) and k not in consumed)
+    if unmapped:
+        logger.warning("XTTS: %d conditioning keys not mapped (naming drift?): %s",
+                       len(unmapped), unmapped[:8])
+    params["_unmapped"] = unmapped
     return params
 
 

@@ -41,11 +41,21 @@ the same.
 
 Weights: ``<model_dir>/model.pth``, a Coqui XTTS v2 checkpoint, converted
 by ``convert.py`` as the JAX package converts it; without one, or where it
-does not convert, seeded random weights (the JAX package's rule).
+does not convert, seeded random weights (the JAX package's rule). The
+conditioning encoder's keys convert on their own: where they do not,
+``clone_speaker`` runs on seeded conditioning weights (logged), as there.
 
-Not ported: ``clone_speaker`` (the conditioning encoder and the WavLM
-x-vector come with the speaker-verification slice) and the XLA compile
-cache.
+Voice cloning (``clone_speaker``): the reference audio's log-mel
+(``audio/mel.py`` after ``pad_or_trim``, (80, 3000)) through the
+conditioning encoder (``conditioning.py``, f32) gives ``gpt_cond_latent``;
+the WavLM x-vector, padded or cut to the vocoder's ``cond_dim`` and
+L2-normalized, gives ``speaker_embedding``; both come back as float16
+lists, as in the JAX package. The x-vector's weights are the speaker
+verifier's (``server/sv.wavlm_dir``, ``<model_dir>/wavlm-base-plus-sv``), not
+the JAX package's relative default; ``embed_fn`` replaces the embedder
+(``SpeakerVerifier``'s seam).
+
+Not ported: the XLA compile cache.
 """
 
 from __future__ import annotations
@@ -54,8 +64,9 @@ import collections
 import logging
 import os
 import re
+import threading
 from dataclasses import dataclass, field
-from typing import Iterator, Optional, Union
+from typing import Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -137,6 +148,7 @@ class XTTSModel:
         pipeline_depth: int = 1,
         dtype: torch.dtype = torch.bfloat16,
         model_dir: Optional[str] = None,
+        embed_fn=None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg or XTTSConfig()
@@ -144,6 +156,12 @@ class XTTSModel:
         self.fused_head = bool(fused_head)
         self.pipeline_depth = max(1, int(pipeline_depth))
         self._tokenizer = self._load_tokenizer(model_dir)
+        # voice cloning: the conditioning weights (from the checkpoint, else
+        # seeded at first use) and the speaker embedder
+        self._cond_params: Optional[Dict] = None
+        self._cond_program = None
+        self._embed_fn = embed_fn
+        self._clone_lock = threading.Lock()
         # weights: the converted Coqui checkpoint if there is one, else seeded
         self.gpt_params, self.vocoder_params = self._load_checkpoint(model_dir)
         if self.gpt_params is None:
@@ -187,6 +205,7 @@ class XTTSModel:
         sd = load_coqui_checkpoint(ckpt)
         if not sd:
             return None, None
+        self._load_conditioning(sd)
         try:
             gpt = gpt_from_coqui(sd, self.cfg.gpt, self.dtype, self.device)
             vocoder = hifigan_from_coqui(sd, self.cfg.vocoder, self.dtype, self.device)
@@ -195,6 +214,22 @@ class XTTSModel:
             return None, None
         logger.info("XTTS: loaded Coqui checkpoint %s", ckpt)
         return gpt, vocoder
+
+    def _load_conditioning(self, sd) -> None:
+        """The conditioning encoder's tree from the checkpoint's
+        ``gpt.conditioning_*`` keys, on its own: where they do not convert,
+        logged, and ``clone_speaker`` uses seeded weights."""
+        from wis_tpu_torch.models.xtts.convert import conditioning_from_coqui
+
+        try:
+            cond = conditioning_from_coqui(sd, self._cond_cfg(), torch.float32, self.device)
+        except (KeyError, ValueError) as e:
+            logger.warning("XTTS: conditioning conversion failed (%s); clone_speaker "
+                           "uses seeded conditioning weights", e)
+            return
+        cond.pop("_unmapped")
+        self._cond_params = cond
+        logger.info("XTTS: loaded the conditioning encoder from the checkpoint")
 
     @staticmethod
     def _load_tokenizer(model_dir):
@@ -234,12 +269,68 @@ class XTTSModel:
         tiny = torch.finfo(torch.float32).tiny
         return -torch.log(-torch.log(torch.clamp_min(u, tiny)))
 
-    def clone_speaker(self, audio_16k: np.ndarray):
-        raise NotImplementedError(
-            "clone_speaker needs the XTTS conditioning encoder (its checkpoint "
-            "conversion included) and the WavLM x-vector, which the port does not "
-            "have yet; pass gpt_cond_latent and speaker_embedding (a saved voice) instead"
+    # ------------------------------------------------------------------ #
+    # Voice cloning: reference audio → (gpt_cond_latent, speaker_embedding)
+    # ------------------------------------------------------------------ #
+    def _cond_cfg(self):
+        from wis_tpu_torch.models.xtts.conditioning import ConditioningConfig
+
+        g = self.cfg.gpt
+        return ConditioningConfig(
+            n_mels=80,
+            d_model=g.d_model,
+            n_heads=g.n_head,
+            n_blocks=min(6, g.n_layer),
+            n_latents=self.cfg.cond_len,
+            n_groups=min(32, g.d_model // 4),
+            perceiver_heads=min(8, g.n_head),
+            perceiver_depth=2,
         )
+
+    def _conditioning(self):
+        """(the clone program, the conditioning tree), made at first use."""
+        from wis_tpu_torch.models.xtts.conditioning import (
+            build_clone_program,
+            random_conditioning,
+        )
+
+        with self._clone_lock:
+            if self._cond_params is None:
+                self._cond_params = random_conditioning(self._cond_cfg(), device=self.device)
+            if self._cond_program is None:
+                self._cond_program = build_clone_program(self._cond_cfg())
+        return self._cond_program, self._cond_params
+
+    def _speaker_embedding(self, audio_16k: np.ndarray) -> np.ndarray:
+        """The vocoder's speaker embedding: the WavLM x-vector (the speaker
+        verifier's embedder) padded or cut to ``cond_dim``, L2-normalized,
+        float16."""
+        cdim = self.cfg.vocoder.cond_dim
+        with self._clone_lock:
+            if self._embed_fn is None:
+                from wis_tpu_torch.models.wavlm import default_embedder
+                from wis_tpu_torch.server.sv import wavlm_dir
+
+                self._embed_fn = default_embedder(wavlm_dir(), self.device)
+        emb = np.asarray(self._embed_fn(audio_16k), np.float32).reshape(-1)
+        if emb.shape[0] < cdim:
+            emb = np.pad(emb, (0, cdim - emb.shape[0]))
+        emb = emb[:cdim]
+        return (emb / max(np.linalg.norm(emb), 1e-6)).astype(np.float16)
+
+    def clone_speaker(self, audio_16k: np.ndarray) -> Dict[str, list]:
+        """Reference audio (16 kHz float32) → a voice: ``gpt_cond_latent``
+        (cond_len, d_model) and ``speaker_embedding`` (cond_dim,), float16
+        lists (the reference's saved-voice JSON)."""
+        from wis_tpu_torch.audio.mel import log_mel, pad_or_trim
+
+        program, cond_params = self._conditioning()
+        audio = np.ascontiguousarray(pad_or_trim(np.asarray(audio_16k, np.float32)))
+        with torch.inference_mode():
+            mel = log_mel(torch.from_numpy(audio).to(self.device))  # (80, 3000)
+        cond = program(cond_params, mel[None]).cpu().numpy().astype(np.float16)
+        emb = self._speaker_embedding(audio_16k)
+        return {"gpt_cond_latent": cond.tolist(), "speaker_embedding": emb.tolist()}
 
     # ------------------------------------------------------------------ #
     def inference_stream(

@@ -1,5 +1,6 @@
 """Engine settings — the ``wis_tpu.settings.APISettings`` fields the ASR
-engine and model registry read, with the same names and defaults.
+engine, the model registry and the speaker verifier read, with the same
+names and defaults.
 
 ``wis_tpu.settings`` needs pydantic, which the card's machine does not
 have, so the port carries a plain dataclass. A CPU test holds the
@@ -9,7 +10,7 @@ defaults equal to ``wis_tpu``'s.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 
 @dataclass
@@ -83,6 +84,14 @@ class APISettings:
     warmup_iterations: int = 1
     #: max cached ASR programs per engine
     compile_cache_max: int = 32
+
+    #: speaker verification: None = auto (on iff WavLM weights are present
+    #: at startup, ``server.sv.sv_weights_present``); true/false always wins
+    support_sv: Optional[bool] = None
+    #: cosine at or above which a voice matches an enrolled speaker
+    sv_threshold: float = 0.75
+    #: directory of enrolled speaker embeddings (<name>.npy)
+    sv_speaker_dir: str = "speakers/voice_auth"
 
     def batch_bucket_list(self) -> List[int]:
         return sorted(int(b) for b in self.batch_buckets)

@@ -18,11 +18,17 @@ without the checkpoint itself:
 
 Exposed as ``python -m wis_tpu_torch.cli convert-model --selftest <size>``.
 
-:func:`synthetic_coqui_sd` is the GPT and HiFi-GAN half of the JAX
-package's XTTS v2 ``model.pth`` key list, zero-filled as there or, given
-a seed, filled with seeded values so that a stream from it differs from
-one from the seeded random trees (``chip_smoke.py`` loads one at full
-width).
+:func:`hf_wavlm_shapes` lists an HF ``WavLMForXVector`` state dict the same
+way (``chip_smoke.py`` writes a seeded one and loads it).
+
+:func:`synthetic_coqui_sd` is the JAX package's XTTS v2 ``model.pth`` key
+list (the GPT and HiFi-GAN, and with a conditioning config the
+conditioning encoder's keys), zero-filled as there or, given a seed,
+filled with seeded values so that a stream and a clone from it differ from
+those of the seeded random trees (``chip_smoke.py`` loads one at full
+width). :func:`xtts_selftest` converts the zero-filled list at XTTS v2's
+dims and checks the trees, as ``wis_tpu.utils.selftest.xtts_selftest``
+does; it is ``python -m wis_tpu_torch.cli convert-model --selftest xtts``.
 """
 
 from __future__ import annotations
@@ -48,6 +54,9 @@ def _spec(tree, prefix=""):
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree
@@ -184,15 +193,91 @@ def whisper_selftest(size: str, forward: bool = True, device: DeviceLike = "cuda
 
 
 # --------------------------------------------------------------------------- #
+# WavLM
+# --------------------------------------------------------------------------- #
+def hf_wavlm_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
+    """{key: shape} of an HF ``WavLMForXVector`` state dict at cfg's dims
+    (post-LN encoder, group-norm feature extractor, no weighted layer sum,
+    HF's default two labels in the classifier's objective),
+    in transformers' order; written out by hand, as the card's machine has
+    no ``transformers`` (a CPU test holds it equal to the package's)."""
+    h = cfg.hidden_size
+    shapes = {"wavlm.masked_spec_embed": (h,)}
+    c_in = 1
+    for i, (c, k) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel)):
+        p = f"wavlm.feature_extractor.conv_layers.{i}."
+        shapes[p + "conv.weight"] = (c, c_in, k)
+        if cfg.conv_bias:
+            shapes[p + "conv.bias"] = (c,)
+        if i == 0:
+            shapes[p + "layer_norm.weight"] = (c,)
+            shapes[p + "layer_norm.bias"] = (c,)
+        c_in = c
+    d = cfg.conv_dim[-1]
+    pc = "wavlm.encoder.pos_conv_embed.conv."
+    shapes.update({
+        "wavlm.feature_projection.layer_norm.weight": (d,),
+        "wavlm.feature_projection.layer_norm.bias": (d,),
+        "wavlm.feature_projection.projection.weight": (h, d),
+        "wavlm.feature_projection.projection.bias": (h,),
+        pc + "bias": (h,),
+        pc + "parametrizations.weight.original0": (1, 1, cfg.num_conv_pos_embeddings),
+        pc + "parametrizations.weight.original1": (
+            h, h // cfg.num_conv_pos_embedding_groups, cfg.num_conv_pos_embeddings),
+        "wavlm.encoder.layer_norm.weight": (h,),
+        "wavlm.encoder.layer_norm.bias": (h,),
+    })
+    for i in range(cfg.num_layers):
+        p = f"wavlm.encoder.layers.{i}."
+        shapes[p + "attention.gru_rel_pos_const"] = (1, cfg.num_heads, 1, 1)
+        for proj in ("k_proj", "v_proj", "q_proj", "out_proj"):
+            shapes[p + f"attention.{proj}.weight"] = (h, h)
+            shapes[p + f"attention.{proj}.bias"] = (h,)
+        shapes[p + "attention.gru_rel_pos_linear.weight"] = (8, h // cfg.num_heads)
+        shapes[p + "attention.gru_rel_pos_linear.bias"] = (8,)
+        if i == 0:
+            shapes[p + "attention.rel_attn_embed.weight"] = (cfg.num_buckets, cfg.num_heads)
+        shapes.update({
+            p + "layer_norm.weight": (h,),
+            p + "layer_norm.bias": (h,),
+            p + "feed_forward.intermediate_dense.weight": (cfg.intermediate_size, h),
+            p + "feed_forward.intermediate_dense.bias": (cfg.intermediate_size,),
+            p + "feed_forward.output_dense.weight": (h, cfg.intermediate_size),
+            p + "feed_forward.output_dense.bias": (h,),
+            p + "final_layer_norm.weight": (h,),
+            p + "final_layer_norm.bias": (h,),
+        })
+    shapes["projector.weight"] = (cfg.tdnn_dim[0], h)
+    shapes["projector.bias"] = (cfg.tdnn_dim[0],)
+    for i, (c, k) in enumerate(zip(cfg.tdnn_dim, cfg.tdnn_kernel)):
+        c_in = cfg.tdnn_dim[i - 1] if i > 0 else cfg.tdnn_dim[0]
+        shapes[f"tdnn.{i}.kernel.weight"] = (c, c_in * k)
+        shapes[f"tdnn.{i}.kernel.bias"] = (c,)
+    out = cfg.xvector_output_dim
+    shapes.update({
+        "feature_extractor.weight": (out, 2 * cfg.tdnn_dim[-1]),
+        "feature_extractor.bias": (out,),
+        "classifier.weight": (out, out),
+        "classifier.bias": (out,),
+        "objective.weight": (out, 2),
+    })
+    return shapes
+
+
+# --------------------------------------------------------------------------- #
 # XTTS
 # --------------------------------------------------------------------------- #
-def synthetic_coqui_sd(gpt_cfg, voc_cfg, seed=None) -> Dict[str, torch.Tensor]:
+def synthetic_coqui_sd(gpt_cfg, voc_cfg, cond_cfg=None, seed=None) -> Dict[str, torch.Tensor]:
     """The published XTTS-v2 ``model.pth`` keys of the GPT and the HiFi-GAN
     at the given dims, f32 on the CPU (the published position tables carry
     +2/+3 start/stop rows over the config maxima; the vocoder's convolutions
-    are weight-normed, ``weight_g``/``weight_v``). Zero-filled (``weight_g``
-    ones) as the JAX package's ``synthetic_coqui_sd``; with a ``seed``,
-    weights ~ N(0, 0.02²) from a ``torch.Generator`` and LayerNorm gains 1."""
+    are weight-normed, ``weight_g``/``weight_v``), and with ``cond_cfg``
+    those of the conditioning encoder and ``mel_stats``: the JAX package's
+    ``synthetic_coqui_sd(gpt_cfg, voc_cfg, cond_cfg)``. Zero-filled
+    (``weight_g`` and ``mel_stats`` ones) as there; with a ``seed``, weights
+    ~ N(0, 0.02²) from a ``torch.Generator``, LayerNorm, GroupNorm and RMSNorm
+    gains 1 (the conditioning keys drawn after the rest, so the GPT and
+    HiFi-GAN values do not depend on ``cond_cfg``)."""
     gen = None if seed is None else torch.Generator().manual_seed(seed)
     D, L = gpt_cfg.d_model, gpt_cfg.n_layer
 
@@ -261,4 +346,123 @@ def synthetic_coqui_sd(gpt_cfg, voc_cfg, seed=None) -> Dict[str, torch.Tensor]:
         ch = out
     wn(h + "conv_post", 1, ch, 7)
     sd[h + "conv_post.bias"] = z(1)
+    if cond_cfg is None:
+        return sd
+    sd["mel_stats"] = torch.ones(cond_cfg.n_mels)
+    c = "gpt.conditioning_encoder."
+    sd[c + "init.weight"] = w(D, cond_cfg.n_mels, 1)
+    sd[c + "init.bias"] = z(D)
+    for i in range(cond_cfg.n_blocks):
+        b = c + f"attn.{i}."
+        sd[b + "norm.weight"] = gain(D)
+        sd[b + "norm.bias"] = z(D)
+        sd[b + "qkv.weight"] = w(3 * D, D, 1)
+        sd[b + "qkv.bias"] = z(3 * D)
+        sd[b + "proj_out.weight"] = w(D, D, 1)
+        sd[b + "proj_out.bias"] = z(D)
+    q = "gpt.conditioning_perceiver."
+    inner = cond_cfg.perceiver_heads * cond_cfg.perceiver_dim_head
+    ff = cond_cfg.ff_mult * D
+    sd[q + "latents"] = w(cond_cfg.n_latents, D)
+    for i in range(cond_cfg.perceiver_depth):
+        a = q + f"layers.{i}.0."
+        f = q + f"layers.{i}.1."
+        sd[a + "norm.gamma"] = gain(D)
+        sd[a + "to_q.weight"] = w(inner, D)
+        sd[a + "to_kv.weight"] = w(2 * inner, D)
+        sd[a + "to_out.weight"] = w(D, inner)
+        sd[f + "0.gamma"] = gain(D)
+        sd[f + "1.weight"] = w(ff, D)
+        sd[f + "1.bias"] = z(ff)
+        sd[f + "3.weight"] = w(D, ff)
+        sd[f + "3.bias"] = z(D)
+    sd[q + "norm.gamma"] = gain(D)
     return sd
+
+
+def xtts_selftest(forward: bool = True, device: DeviceLike = "cuda") -> Dict:
+    """Convert the zero-filled XTTS v2 ``model.pth`` key list at XTTS v2's
+    dims on ``device`` and check the trees:
+    every conditioning key read, the GPT and vocoder shapes. With
+    ``forward``, one vocoder call, one GPT prefill and one conditioning
+    pass over a 30 s log-mel, each finite. Returns the JAX package's report
+    keys (and ``cond_out``); raises on any mismatch."""
+    from wis_tpu_torch.models.xtts.conditioning import ConditioningConfig, conditioning_forward
+    from wis_tpu_torch.models.xtts.convert import (
+        conditioning_from_coqui,
+        gpt_from_coqui,
+        hifigan_from_coqui,
+    )
+    from wis_tpu_torch.models.xtts.model import XTTSConfig
+
+    device = resolve_device(device)
+    cfg = XTTSConfig()
+    cond_cfg = ConditioningConfig()
+
+    def synced():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    t0 = synced()
+    sd = synthetic_coqui_sd(cfg.gpt, cfg.vocoder, cond_cfg)
+    t_build = synced() - t0
+
+    t0 = synced()
+    gpt_params = gpt_from_coqui(sd, cfg.gpt, torch.bfloat16, device)
+    voc_params = hifigan_from_coqui(sd, cfg.vocoder, torch.bfloat16, device)
+    cond_params = conditioning_from_coqui(sd, cond_cfg, torch.float32, device)
+    t_convert = synced() - t0
+    unmapped = cond_params.pop("_unmapped")
+    if unmapped:
+        raise AssertionError(f"conditioning keys not converted: {unmapped}")
+
+    L, D, voc = cfg.gpt.n_layer, cfg.gpt.d_model, cfg.vocoder
+    checks = {
+        "blocks/q_w": (tuple(gpt_params["blocks"]["q_w"].shape), (L, D, D)),
+        "blocks/mlp_w1": (tuple(gpt_params["blocks"]["mlp_w1"].shape), (L, D, 4 * D)),
+        "text_emb": (tuple(gpt_params["text_emb"].shape), (cfg.gpt.n_text_vocab, D)),
+        "head_w": (tuple(gpt_params["head_w"].shape), (D, cfg.gpt.n_audio_vocab)),
+        # transposed-conv weights land as (k, out, in)
+        "ups/0/w": (tuple(voc_params["ups"][0]["w"].shape[1:]),
+                    (voc.upsample_initial // 2, voc.upsample_initial)),
+        "cond init_w": (tuple(cond_params["init_w"].shape), (cond_cfg.n_mels, D)),
+    }
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    if bad:
+        raise AssertionError(f"converted XTTS trees diverge: {bad}")
+
+    trees = (gpt_params, voc_params, cond_params)
+    report = {
+        "model": "xtts-v2",
+        "keys": len(sd),
+        "param_bytes": int(sum(x.numel() * x.element_size() for t in trees for x in _leaves(t))),
+        "build_s": round(t_build, 1),
+        "convert_s": round(t_convert, 1),
+    }
+    del sd
+
+    if forward:
+        from wis_tpu_torch.models.xtts.gpt import build_prefill
+        from wis_tpu_torch.models.xtts.hifigan import hifigan_forward
+
+        t0 = synced()
+        with torch.inference_mode():
+            latents = torch.zeros((1, 8, voc.in_dim), dtype=torch.bfloat16, device=device)
+            speaker = torch.zeros((1, voc.cond_dim), dtype=torch.bfloat16, device=device)
+            wav = hifigan_forward(voc_params, latents, speaker, voc)
+            prefill = build_prefill(cfg.gpt, batch=1, cond_len=cfg.cond_len, text_len=16,
+                                    max_len=128)
+            hidden, _cache = prefill(
+                gpt_params, torch.zeros((1, cfg.cond_len, D), dtype=torch.bfloat16, device=device),
+                torch.zeros((1, 16), dtype=torch.long, device=device))
+            cond = conditioning_forward(
+                cond_params, torch.zeros((1, cond_cfg.n_mels, 3000), device=device), cond_cfg)
+            finite = {name: bool(torch.isfinite(t.float()).all())
+                      for name, t in (("vocoder", wav), ("prefill", hidden), ("cond", cond))}
+        report["forward_s"] = round(synced() - t0, 1)
+        report["vocoder_out"] = tuple(wav.shape)
+        report["cond_out"] = tuple(cond.shape)
+        if not all(finite.values()):
+            raise AssertionError(f"non-finite output at full dims: {finite}")
+    return report
