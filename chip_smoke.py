@@ -104,7 +104,25 @@ exits non-zero without printing a result:
    fused GPT step once a token, ``int8_matmul`` in the prefill); ``python
    -m wis_tpu_torch.cli convert-model --selftest xtts``; two seeded voices
    enrolled in a temporary store through the port's ``SpeakerVerifier``
-   and one verified, the enrol and verify ms.
+   and one verified, the enrol and verify ms;
+11. the serving layers below HTTP on phase 5's engine, with no JAX,
+   pydantic or aiohttp: the wisaudio library built with g++ from
+   ``native/wisaudio`` into ``build/wis_tpu_torch/wisaudio/`` (the build
+   seconds; Python decoding is a failure here); seeded 3.84 s audio as a
+   16-bit WAV at 44.1 kHz stereo, raw s16le at 16 kHz mono and a float
+   WAV at 48 kHz through ``load_audio`` (ms per decode); an
+   ``InferenceExecutor`` taking four large-v2 beam-5 requests from four
+   threads as one dispatch (the same launches as phase 5's coalesced four
+   and the same tokens as the direct ``transcribe_coalesced``, counters
+   set to 0 just before and read once the executor is idle), eight as two
+   dispatches of four (requests/s on the host clock), a lone request
+   beside the direct ``transcribe`` (the ms the executor adds) and a
+   word-timestamps request alone; a ``StreamingSession`` fed 20 ms PCM
+   frames (the text equal to ``engine.transcribe`` on the same audio),
+   one VAD-gated at 48 kHz stereo ending on 1.5 s of silence, and a
+   v3-only ``force_language`` refused with no launch and nothing queued;
+   a ``ReplicaPool`` over every visible CUDA device serving one request;
+   ``get_api_settings()``'s batch fields.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2549,6 +2567,308 @@ def check_sv(torch, dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _counted(counters, call):
+    """call() with every counter set to 0 just before; → (its result,
+    {counter: launches just after})."""
+    for c in counters:
+        c.launches = 0
+    out = call()
+    return out, {c.__name__: c.launches for c in counters}
+
+
+def _concurrently(n, fn):
+    """fn(i) for i < n, each on its own thread, all released at once;
+    → (results in order, host seconds from the release to the last)."""
+    import threading
+
+    barrier = threading.Barrier(n + 1)
+    results = [None] * n
+    errors = []
+
+    def run(i):
+        barrier.wait()
+        try:
+            results[i] = fn(i)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results, time.perf_counter() - t0
+
+
+def _ingest_inputs(seed):
+    """Seeded 3.84 s of audio as a 16-bit WAV at 44.1 kHz stereo, raw
+    s16le at 16 kHz mono (the Willow headers' parameters) and a 32-bit
+    float WAV at 48 kHz; → {name: (bytes, load_audio keyword arguments)}."""
+    import io
+    import struct
+    import wave
+
+    rng = np.random.default_rng(seed)
+
+    def signal(sr, channels):
+        t = np.arange(int(3.84 * sr)) / sr
+        tone = 0.3 * np.sin(2 * np.pi * 220 * t)
+        return np.stack([tone + 0.05 * rng.standard_normal(t.shape[0])
+                         for _ in range(channels)], axis=1).astype(np.float32)
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(2)
+        w.setframerate(44100)
+        w.writeframes((np.clip(signal(44100, 2), -1, 1) * 32767).astype("<i2").tobytes())
+    raw = (np.clip(signal(16000, 1), -1, 1) * 32767).astype("<i2").tobytes()
+    f32 = signal(48000, 1).astype("<f4").tobytes()
+    float_wav = b"".join([
+        b"RIFF", struct.pack("<I", 36 + len(f32)), b"WAVE",
+        b"fmt ", struct.pack("<IHHIIHH", 16, 3, 1, 48000, 48000 * 4, 4, 32),
+        b"data", struct.pack("<I", len(f32)), f32,
+    ])
+    return {
+        "wav 16-bit 44.1 kHz stereo": (buf.getvalue(), {}),
+        "raw s16le 16 kHz mono": (raw, dict(codec="pcm", sample_rate=16000, bits=16,
+                                            channels=1)),
+        "wav float 48 kHz mono": (float_wav, {}),
+    }
+
+
+def _vad_pcm(seed):
+    """3.84 s of voiced audio then 1.5 s of near-silence at 48 kHz, as
+    interleaved s16le stereo."""
+    rng = np.random.default_rng(seed)
+    sr = 48000
+    t = np.arange(int(3.84 * sr)) / sr
+    speech = 0.3 * np.sin(2 * np.pi * 220 * t) + 0.05 * rng.standard_normal(t.shape[0])
+    quiet = 0.001 * rng.standard_normal(int(1.5 * sr))
+    mono = np.concatenate([speech, quiet])
+    return (np.clip(np.stack([mono, 0.5 * mono], axis=1), -1, 1) * 32767).astype("<i2")
+
+
+def check_serving(torch, dev, engine, counters, served, card):
+    """Phase 11: the serving layers below HTTP on the card — the wisaudio
+    library built with g++ from ``native/wisaudio``, ingest of three
+    formats, the dynamic batcher on phase 5's engine (a coalesced four,
+    eight requests, a lone request, word timestamps), a streaming session
+    (PCM frames, VAD-gated at 48 kHz stereo, a refused v3-only language),
+    a replica pool over every visible CUDA device and the settings from
+    the environment. Every check raises."""
+    import asyncio
+
+    from wis_tpu_torch.audio import codecs
+    from wis_tpu_torch.audio.ingest import load_audio
+    from wis_tpu_torch.parallel.replicas import ReplicaPool
+    from wis_tpu_torch.runtime.batcher import ASRRequest, InferenceExecutor
+    from wis_tpu_torch.server.session import DataChannelMessage, StreamingSession
+    from wis_tpu_torch.settings import APISettings, get_api_settings
+
+    s = engine.settings
+    s.fused_decode = "auto"
+
+    # (a) the native library, built here from the repo's sources
+    path = codecs.library_path()
+    existed = path.is_file()
+    t0 = time.perf_counter()
+    expect("the native wisaudio library", codecs.native_available())
+    print(f"wisaudio: {'loaded' if existed else 'built with g++'} {path} in "
+          f"{time.perf_counter() - t0:.2f} s ({card})")
+
+    # (b) ingest: three encodings of 3.84 s to 16 kHz mono float32
+    for name, (data, kw) in _ingest_inputs(40).items():
+        audio = load_audio(data, **kw)
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            load_audio(data, **kw)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        expect(f"{name}: {audio.shape} {audio.dtype}", audio.dtype == np.float32
+               and audio.ndim == 1 and abs(audio.shape[0] - 61440) <= 1
+               and bool(np.isfinite(audio).all()))
+        print(f"ingest {name} ({len(data)} bytes) → {audio.shape[0]} samples at 16 kHz: "
+              f"median {statistics.median(ms):.3f} ms per decode ({card})")
+
+    # (c) the dynamic batcher on phase 5's engine
+    executor = InferenceExecutor(engine)
+    dispatches = []
+    direct_coalesced = engine.transcribe_coalesced
+
+    def spy(reqs):
+        dispatches.append(len(reqs))
+        return direct_coalesced(reqs)
+
+    def req(seed, cap=32, **kw):
+        return ASRRequest(audio=_audio_i16(3840, seed), model="large", beam_size=5,
+                          max_tokens=cap, **kw)
+
+    engine.transcribe_coalesced = spy
+    try:
+        executor.start()
+        (four, _), n = _counted(counters, lambda: _concurrently(
+            4, lambda i: executor.submit_sync(req(300 + i))))
+        expect(f"four requests from four threads: dispatches {dispatches}", dispatches == [4])
+        expect(f"coalesced launches {n} against phase 5's {served['coalesced']}",
+               n == served["coalesced"])
+        keys = [k for k in engine._programs if k[2] == 4 and k[1] == 5 and k[8]]
+        expect(f"a fused program at batch 4 × beam 5 {list(engine._programs)}", bool(keys))
+        direct, n_direct = _counted(counters, lambda: direct_coalesced(
+            [req(300 + i) for i in range(4)]))
+        expect(f"executor results equal to the direct call: "
+               f"{[r.text for r in four]} {[r.text for r in direct]}",
+               [r.text for r in four] == [r.text for r in direct] and n_direct == n)
+        print(f"executor: 4 requests from 4 threads in one dispatch of 4 (fused step at "
+              f"BK=20, {n['fused_decode_step']} steps, int8_matmul {n['int8_matmul']}, "
+              f"layer_norm_cuda {n['layer_norm_cuda']}), tokens equal to the direct "
+              f"transcribe_coalesced: True")
+
+        dispatches.clear()
+        rates = []
+        for _ in range(3):
+            dispatches.clear()
+            eight, secs = _concurrently(8, lambda i: executor.submit_sync(req(310 + i)))
+            expect(f"eight requests: dispatches {dispatches}", dispatches == [4, 4])
+            rates.append(8 / secs)
+        print(f"executor: 8 requests from 8 threads in 2 dispatches of 4: "
+              f"{', '.join(f'{r:.2f}' for r in rates)} requests/s on the host clock "
+              f"(median {statistics.median(rates):.2f}; {card})")
+
+        dispatches.clear()
+        lone, direct_ms = [], []
+        for i in range(6):  # in turns, each side first every other round
+            audio = _audio_i16(3840, 320 + i)
+            sides = [
+                (lone, lambda: executor.submit_sync(ASRRequest(
+                    audio=audio, model="large", beam_size=5, max_tokens=32))),
+                (direct_ms, lambda: engine.transcribe(audio, beam_size=5, max_tokens=32)),
+            ]
+            texts = []
+            for times, call in sides[i % 2:] + sides[:i % 2]:
+                t0 = time.perf_counter()
+                texts.append(call().text)
+                times.append((time.perf_counter() - t0) * 1e3)
+            expect(f"lone request {texts}", texts[0] == texts[1])
+        expect(f"lone requests dispatched alone: {dispatches}", dispatches == [])
+        gap = statistics.median(lone) - statistics.median(direct_ms)
+        print(f"executor: lone 3.84 s request median {statistics.median(lone):.2f} ms "
+              f"({', '.join(f'{t:.2f}' for t in lone)}) against the direct transcribe "
+              f"{statistics.median(direct_ms):.2f} ms ({', '.join(f'{t:.2f}' for t in direct_ms)})"
+              f": {gap:.2f} ms added (batch window {s.batch_window_s * 1e3:.0f} ms + queue; "
+              f"{card})")
+
+        words, n = _counted(counters, lambda: executor.submit_sync(
+            req(11, word_timestamps=True)))
+        expect(f"word timestamps ran alone: {dispatches}", dispatches == [])
+        expect(f"word-timestamp launches {n} against phase 5's {served['words']}",
+               n == served["words"] and n["int8_matmul"] == 2 * INT8_CALL
+               and n["layer_norm_cuda"] == 2 * MIN_LN and bool(words.words))
+        print(f"executor: word-timestamps request alone, {len(words.words)} words, infer "
+              f"{words.infer_time_ms:.2f} ms ({card}), int8_matmul {n['int8_matmul']}, "
+              f"layer_norm_cuda {n['layer_norm_cuda']}")
+
+        # (d) a streaming session on the same executor
+        session = StreamingSession(executor, s)
+        pcm = _audio_i16(3840, 330)
+
+        async def pcm_session():
+            out = await session.handle(DataChannelMessage(
+                "start", {"sample_rate": 16000, "bits": 16, "channel": 1}))
+            for i in range(0, pcm.shape[0], 320):  # 20 ms frames
+                session.feed_pcm(pcm[i:i + 320].astype("<i2").tobytes())
+            return out + await session.handle(DataChannelMessage("stop", {}))
+
+        t0 = time.perf_counter()
+        replies, n = _counted(counters, lambda: asyncio.run(pcm_session()))
+        stop_ms = (time.perf_counter() - t0) * 1e3
+        types = [json.loads(m)["type"] for m in replies]
+        infer = json.loads(replies[1])["obj"]
+        want = engine.transcribe(pcm, beam_size=s.beam_size)
+        expect(f"session replies {types}", types == ["log", "infer", "log"])
+        expect(f"session text {infer['text']!r} against {want.text!r}",
+               infer["text"] == want.text and infer["audio_duration"] == 3840)
+        expect(f"session launches {n}", n["fused_decode_step"] == n["fused_logits_topk"] >= 1
+               and n["int8_matmul"] == INT8_CALL and n["layer_norm_cuda"] == MIN_LN
+               and n["flash_attention_packed"] == MIN_FLASH)
+        print(f"session: start, 192 frames of 20 ms, stop → infer in {infer['time']:.2f} ms "
+              f"(session {stop_ms:.2f} ms; {card}), text equal to engine.transcribe on the "
+              f"same int16 audio: True; launches: {', '.join(f'{k} {v}' for k, v in n.items())}")
+
+        stereo = _vad_pcm(331)
+
+        async def vad_session():
+            await session.handle(DataChannelMessage(
+                "start", {"vad": True, "sample_rate": 48000, "bits": 16, "channels": 2}))
+            for i in range(0, stereo.shape[0], 960):
+                session.feed_pcm(stereo[i:i + 960].tobytes())
+                if session.vad_triggered:
+                    return i / 48000, await session.vad_stop()
+            return None, []
+
+        (at, replies), n = _counted(counters, lambda: asyncio.run(vad_session()))
+        types = [json.loads(m)["type"] for m in replies]
+        expect(f"VAD endpoint at {at}: {types} {n}", at is not None
+               and types == ["log", "infer", "log"] and not session.recording
+               and n["fused_decode_step"] >= 1 and n["int8_matmul"] == INT8_CALL)
+        print(f"session (VAD, 48 kHz stereo): end of utterance detected at {at:.2f} s "
+              f"(speech ends at 3.84 s) → {types}: "
+              f"{json.loads(replies[1])['obj']['audio_duration']} ms of audio, infer "
+              f"{json.loads(replies[1])['obj']['time']:.2f} ms ({card}), fused_decode_step "
+              f"{n['fused_decode_step']}")
+
+        async def refused():
+            await session.handle(DataChannelMessage("start", {}))
+            session.feed_pcm(pcm[:16000].astype("<i2").tobytes())
+            return await session.handle(DataChannelMessage("stop", {"force_language": "yue"}))
+
+        dispatches.clear()
+        replies, n = _counted(counters, lambda: asyncio.run(refused()))
+        reply = json.loads(replies[0])
+        expect(f"yue on large-v2: {replies} {n} depth {executor.queue_depth}",
+               len(replies) == 1 and reply["type"] == "error" and "large-v3" in reply["obj"]["msg"]
+               and not any(n.values()) and executor.queue_depth == 0 and dispatches == [])
+        print(f"session: force_language yue on large-v2 refused before enqueue "
+              f"({reply['obj']['msg']!r}), 0 launches, queue depth 0")
+    finally:
+        executor.shutdown()
+        del engine.transcribe_coalesced
+
+    # (e) a replica pool over every visible CUDA device
+    t0 = time.perf_counter()
+    pool = ReplicaPool(APISettings(whisper_model_default="large", beam_size=5,
+                                   long_beam_size=5))
+    try:
+        devices = [str(e.device) for e in pool.engines]
+        expect(f"pool devices {devices}",
+               devices == [f"cuda:{i}" for i in range(torch.cuda.device_count())])
+        audio = _audio_i16(3840, 340)
+        got = pool.submit_sync(ASRRequest(audio=audio, model="large", beam_size=5,
+                                          max_tokens=32))
+        pool_s = time.perf_counter() - t0
+        want = engine.transcribe(audio, beam_size=5, max_tokens=32)
+        expect(f"pool result {got.text!r} against {want.text!r}", got.text == want.text)
+        print(f"replica pool: {len(devices)} replica(s) on {devices}, large-v2 loaded and one "
+              f"request served in {pool_s:.2f} s (infer {got.infer_time_ms:.2f} ms; {card}), "
+              f"tokens equal to phase 5's engine: True")
+    finally:
+        pool.shutdown()
+        del pool
+        torch.cuda.empty_cache()
+
+    # (f) the settings, from this process's environment
+    get_api_settings.cache_clear()
+    env = get_api_settings()
+    expect("pydantic imported", "pydantic" not in sys.modules)
+    print(f"get_api_settings() without pydantic: batch_window_s {env.batch_window_s}, "
+          f"batch_admit_s {env.batch_admit_s}, batch_admit_max_s {env.batch_admit_max_s}, "
+          f"batch_buckets {env.batch_buckets}, replica_pool {env.replica_pool!r}")
+
+
 def main() -> int:
     import argparse
 
@@ -2685,6 +3005,7 @@ def main() -> int:
     del xtts
     check_xtts_selftest_cli()
     check_sv(torch, dev)
+    check_serving(torch, dev, engine, counters, served, smi)
 
     rows = [
         dict(name="layer_norm", source="wis_tpu_torch/csrc/layernorm.cu",

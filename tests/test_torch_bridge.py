@@ -238,8 +238,10 @@ def test_kernel_wrappers_have_no_fallback():
 
 
 def test_port_imports_no_jax_pydantic_or_aiohttp():
-    """Importing every module of the port (the conditioning encoder, WavLM
-    and the speaker verifier among them), chip_smoke.py and chip_profile.py
+    """Importing every module of the port (the conditioning encoder, WavLM,
+    the speaker verifier, the settings loader, the batcher, the replica
+    pool, codecs, ingest, VAD, the streaming session and the recorder among
+    them), chip_smoke.py and chip_profile.py
     in a fresh interpreter loads neither JAX, pydantic, aiohttp nor the wis_tpu
     package — the card's machine has none of them."""
     code = (
@@ -250,7 +252,12 @@ def test_port_imports_no_jax_pydantic_or_aiohttp():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'pydantic', 'aiohttp', 'wis_tpu'))\n"
         "new = ('wis_tpu_torch.models.xtts.conditioning', 'wis_tpu_torch.models.wavlm',\n"
-        "       'wis_tpu_torch.models.wavlm.model', 'wis_tpu_torch.server.sv')\n"
+        "       'wis_tpu_torch.models.wavlm.model', 'wis_tpu_torch.server.sv',\n"
+        "       'wis_tpu_torch.settings', 'wis_tpu_torch.runtime.engine',\n"
+        "       'wis_tpu_torch.runtime.batcher', 'wis_tpu_torch.parallel.replicas',\n"
+        "       'wis_tpu_torch.audio.codecs', 'wis_tpu_torch.audio.ingest',\n"
+        "       'wis_tpu_torch.audio.vad', 'wis_tpu_torch.server.session',\n"
+        "       'wis_tpu_torch.server.media')\n"
         "bad += [m for m in new if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('wis_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -342,7 +342,7 @@ def checkpoint_engines(tmp_path_factory):
                                                      dtype=np.float16))
     try:
         ps = _port_settings(root)
-        js = JaxSettings(batch_window_s=0.01, **dataclasses.asdict(ps))
+        js = JaxSettings(**dict(dataclasses.asdict(ps), batch_window_s=0.01))
         jax_engine = JaxEngine(JaxRegistry(js), js)
         port = WhisperEngine(ModelRegistry(ps, "cpu"))
         jax_engine.registry.get(size)

@@ -3,12 +3,18 @@
 A second package beside the JAX one, laid out like it so each module's
 counterpart is easy to find:
 
-    wis_tpu_torch.audio     — log-mel frontend
-    wis_tpu_torch.models    — whisper config, tokenizer, weights, model
+    wis_tpu_torch.audio     — log-mel frontend, codecs (the native
+                              wisaudio library), ingest, VAD
+    wis_tpu_torch.models    — whisper, XTTS v2 and WavLM
     wis_tpu_torch.ops       — quantization, gelu, attention helpers and the
                               hand-written Hopper kernels (``csrc/``)
     wis_tpu_torch.decoding  — language detect, beam search, the ASR program
-    wis_tpu_torch.runtime   — model registry and the transcription engine
+    wis_tpu_torch.runtime   — model registry, transcription engine and the
+                              dynamic batcher
+    wis_tpu_torch.parallel  — one engine replica per CUDA device
+    wis_tpu_torch.server    — the layers below HTTP: streaming session,
+                              WebRTC recorder, speaker verification
+    wis_tpu_torch.settings  — settings from the environment
     wis_tpu_torch.utils     — the converter self-test
     wis_tpu_torch.cli       — ``python -m wis_tpu_torch.cli convert-model``
 

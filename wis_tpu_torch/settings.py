@@ -1,20 +1,66 @@
-"""Engine settings — the ``wis_tpu.settings.APISettings`` fields the ASR
-engine, the model registry and the speaker verifier read, with the same
-names and defaults.
+"""Settings from the environment — the ``wis_tpu.settings.APISettings``
+fields the ASR engine, the model registry, the dynamic batcher, the
+replica pool, the streaming session and the speaker verifier read, with
+the same names and defaults.
 
 ``wis_tpu.settings`` needs pydantic, which the card's machine does not
-have, so the port carries a plain dataclass. A CPU test holds the
-defaults equal to ``wis_tpu``'s.
+have, so the port carries a plain dataclass and the JAX package's
+loader: every field is settable by an environment variable of the same
+name, case-insensitive, over a flat ``.env`` file in the working
+directory (the process environment wins), and a module named
+``custom_settings`` that defines ``get_api_settings`` replaces the whole
+loader. CPU tests hold the defaults and the parsing equal to
+``wis_tpu``'s.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
+import re
+import typing
 from dataclasses import dataclass, field
+from functools import lru_cache
 from typing import List, Optional
+
+
+def _coerce(raw: str, annotation) -> object:
+    """Parse an env-var string into the field's type (pydantic-settings
+    rules, as ``wis_tpu.settings._coerce``)."""
+    if annotation in (bool, Optional[bool]):
+        return raw.strip().lower() in ("1", "true", "yes", "on", "t", "y")
+    if annotation is int:
+        return int(raw)
+    if annotation is float:
+        return float(raw)
+    if annotation in (List[str], list):
+        raw = raw.strip()
+        if raw.startswith("["):
+            return json.loads(raw)
+        return [s.strip() for s in raw.split(",") if s.strip()]
+    return raw
+
+
+_ZERO_FRACTION = re.compile(r"\s*([+-]?\d[\d_]*)\.0+\s*")
+
+
+def _refused(name: str, raw: str, annotation) -> object:
+    """A value ``_coerce`` could not parse. The JAX loader passes it on raw
+    and its pydantic model validates it: an integer written with a zero
+    fraction ("3.0") becomes that integer, anything else is refused."""
+    m = _ZERO_FRACTION.fullmatch(raw)
+    if annotation is int and m:
+        return int(m.group(1))
+    raise ValueError(f"setting {name}: cannot parse {raw!r} as {annotation}")
 
 
 @dataclass
 class APISettings:
+    name: str = "Willow Inference Server (TPU)"
+    description: str = "High Performance Language Inference API — TPU-native"
+    version: str = "1.0"
+
     #: default beam size — 1 is greedy
     beam_size: int = 1
     #: beam size for long transcriptions ("long mode")
@@ -85,6 +131,23 @@ class APISettings:
     #: max cached ASR programs per engine
     compile_cache_max: int = 32
 
+    #: dynamic batcher window (s): how long a lone request is held open
+    #: for near-simultaneous arrivals before dispatch
+    batch_window_s: float = 0.004
+    #: straggler admission (s): a batch already coalescing (≥ 2) but below
+    #: the largest batch bucket waits in windows of this length; each
+    #: window that lands a request extends the wait, a silent one dispatches
+    batch_admit_s: float = 0.02
+    #: absolute ceiling on the straggler wait, from the first admit window
+    batch_admit_max_s: float = 0.08
+    #: one engine replica per device ("auto": when more than one is visible)
+    replica_pool: str = "auto"
+
+    #: TTS speaker-latent store directory
+    xtts_speaker_dir: str = "speakers/xtts"
+    #: default TTS decoder chunk size in tokens
+    tts_stream_chunk_size: int = 20
+
     #: speaker verification: None = auto (on iff WavLM weights are present
     #: at startup, ``server.sv.sv_weights_present``); true/false always wins
     support_sv: Optional[bool] = None
@@ -113,3 +176,48 @@ class APISettings:
     def audio_second_bucket_list(self) -> List[int]:
         return sorted(int(b) for b in self.audio_second_buckets)
 
+
+
+def _load_dotenv(path: str = ".env") -> dict:
+    """Flat KEY=VALUE file; keys lower-cased, quotes stripped."""
+    out = {}
+    if os.path.isfile(path):
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line or line.startswith("#") or "=" not in line:
+                    continue
+                key, _, value = line.partition("=")
+                out[key.strip().lower()] = value.strip().strip("'\"")
+    return out
+
+
+def _settings_from_env() -> APISettings:
+    env = _load_dotenv()
+    env.update({k.lower(): v for k, v in os.environ.items()})
+    # the module's annotations are strings (``from __future__ import
+    # annotations``): resolve them before coercing, or every bool, int and
+    # list field would stay a string
+    hints = typing.get_type_hints(APISettings)
+    kwargs = {}
+    for f in dataclasses.fields(APISettings):
+        if f.name in env:
+            try:
+                kwargs[f.name] = _coerce(env[f.name], hints[f.name])
+            except (ValueError, json.JSONDecodeError):
+                kwargs[f.name] = _refused(f.name, env[f.name], hints[f.name])
+    return APISettings(**kwargs)
+
+
+@lru_cache()
+def get_api_settings() -> APISettings:
+    """Process-wide settings, honouring the ``custom_settings`` override
+    hook."""
+    try:
+        import custom_settings  # type: ignore
+
+        if hasattr(custom_settings, "get_api_settings"):
+            return custom_settings.get_api_settings()
+    except ImportError:
+        pass
+    return _settings_from_env()
