@@ -123,6 +123,29 @@ exits non-zero without printing a result:
    v3-only ``force_language`` refused with no launch and nothing queued;
    a ``ReplicaPool`` over every visible CUDA device serving one request;
    ``get_api_settings()``'s batch fields.
+12. the HTTP apps' cores (``wis_tpu_torch/server/app.py``, ``tts_app.py``)
+   on phase 5's engine and phase 7's XTTS v2, with no aiohttp, under one
+   event loop, the counters set to 0 just before each request and read once
+   it is answered: ``/api/asr`` on phase 11's 44.1 kHz stereo WAV (the
+   direct call's text; timestamps with the grammar head at every step,
+   word timestamps, detect; the core's ms over ``executor.submit_sync`` in
+   turns, beside ``/api/willow`` on the same samples as PCM and the WAV's
+   decode; four at once through ``asyncio.gather`` as one dispatch with the
+   direct ``transcribe_coalesced``'s launches and tokens; a beam of 99,
+   ``yue`` on large-v2, ``xx`` and bytes that are no audio refused with no
+   launch and nothing queued), ``/api/willow`` (raw PCM with the
+   ``x-audio-*`` headers and stats; a WAV with ``save_audio`` into a
+   temporary static root; ``voice_auth`` 406 with no voice enrolled, then
+   alice's reply after ``/api/sv`` enrolled two voices and refused
+   ``enroll=../x``), the WebSocket loop on phase 11's frames (its text),
+   ``/api/status``, ping, OpenAPI and docs; ``GET /api/tts`` for an unknown
+   speaker with an empty store (the built-in voices cloned, then the
+   196-character text streamed to the 605-token cap: 605 fused GPT steps,
+   ``int8_matmul`` 180, the fused head 0), five streams in the default
+   voice (time to the first chunk and stream ms, host clock), two greedy
+   streams at once equal to their lone runs, voice enrolment,
+   ``/clone_speaker``, ``/tts_stream`` and the speakers list; the CLI's
+   ``run --help`` and ``run-tts --help``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2660,7 +2683,7 @@ def check_serving(torch, dev, engine, counters, served, card):
     eight requests, a lone request, word timestamps), a streaming session
     (PCM frames, VAD-gated at 48 kHz stereo, a refused v3-only language),
     a replica pool over every visible CUDA device and the settings from
-    the environment. Every check raises."""
+    the environment. Every check raises. → the session's text."""
     import asyncio
 
     from wis_tpu_torch.audio import codecs
@@ -2795,6 +2818,7 @@ def check_serving(torch, dev, engine, counters, served, card):
         expect(f"session launches {n}", n["fused_decode_step"] == n["fused_logits_topk"] >= 1
                and n["int8_matmul"] == INT8_CALL and n["layer_norm_cuda"] == MIN_LN
                and n["flash_attention_packed"] == MIN_FLASH)
+        session_text = infer["text"]
         print(f"session: start, 192 frames of 20 ms, stop → infer in {infer['time']:.2f} ms "
               f"(session {stop_ms:.2f} ms; {card}), text equal to engine.transcribe on the "
               f"same int16 audio: True; launches: {', '.join(f'{k} {v}' for k, v in n.items())}")
@@ -2867,6 +2891,397 @@ def check_serving(torch, dev, engine, counters, served, card):
     print(f"get_api_settings() without pydantic: batch_window_s {env.batch_window_s}, "
           f"batch_admit_s {env.batch_admit_s}, batch_admit_max_s {env.batch_admit_max_s}, "
           f"batch_buckets {env.batch_buckets}, replica_pool {env.replica_pool!r}")
+    return session_text
+
+
+# --------------------------------------------------------------------------- #
+# Phase 12: the HTTP apps' cores
+# --------------------------------------------------------------------------- #
+#: the fields of an ASR reply with stats (schemas.ASR without translation)
+ASR_FIELDS = {"infer_time", "infer_speedup", "audio_duration", "language", "text"}
+
+
+async def _counted_async(counters, awaitable):
+    """awaitable with every counter set to 0 just before; → (its result,
+    {counter: launches once it is done}, host ms)."""
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = await awaitable
+    return out, {c.__name__: c.launches for c in counters}, (time.perf_counter() - t0) * 1e3
+
+
+async def _collect(reply):
+    """A core's streamed reply (awaited here) → (its chunks, ms to the first
+    audio chunk, total ms), both from the call."""
+    t0 = time.perf_counter()
+    chunks, first = [], None
+    async for chunk in (await reply).stream:
+        chunks.append(chunk)
+        if len(chunks) == 2:  # the WAV header comes first
+            first = (time.perf_counter() - t0) * 1e3
+    return chunks, first, (time.perf_counter() - t0) * 1e3
+
+
+def _launches(n):
+    return ", ".join(f"{k} {v}" for k, v in n.items() if v)
+
+
+def check_apps(torch, dev, engine, counters, xtts, session_text, card):
+    """Phase 12: the cores of the port's ASR and TTS apps
+    (``server/app.py``, ``server/tts_app.py``) on phase 5's engine and phase
+    7's XTTS v2, under one event loop, with no aiohttp: the state of
+    ``build_state`` (SV on, stores and the static root in a temporary
+    directory), every route's core with its launches checked (the counters
+    set to 0 just before each request and read once it is answered), the
+    refusals with no launch and nothing queued, the WebSocket loop, the TTS
+    routes with their streams, two concurrent streams against their lone
+    runs, and the CLI's help. Every check raises."""
+    import asyncio
+    import tempfile
+
+    from wis_tpu_torch.audio.ingest import load_audio, pcm_to_wav_bytes, wav_stream_header
+    from wis_tpu_torch.ops.fused_gpt import fused_gpt_step
+    from wis_tpu_torch.ops.fused_gpt_head import fused_gpt_head
+    from wis_tpu_torch.runtime.batcher import ASRRequest
+    from wis_tpu_torch.server import app, tts_app
+
+    every = tuple(counters) + (fused_gpt_step, fused_gpt_head)
+    root = tempfile.mkdtemp(prefix="wis_apps_")
+    s = dataclasses.replace(engine.settings, support_sv=True, sv_speaker_dir=f"{root}/sv",
+                            xtts_speaker_dir=f"{root}/voices")
+    model, beam = s.whisper_model_default, s.beam_size
+    state = app.build_state(s, engine=engine, static_root=root)
+    tts = tts_app.build_tts_state(s, model=xtts)
+    expect(f"state {state.registry.device} {type(state.executor).__name__} sv "
+           f"{state.sv_enabled} {state.save_audio_path}",
+           state.registry.device == dev and state.sv_enabled
+           and state.save_audio_path.startswith(root))
+    dispatches = []
+    direct_one, direct_many = engine.transcribe, engine.transcribe_coalesced
+
+    def one(*a, **kw):
+        dispatches.append(1)
+        return direct_one(*a, **kw)
+
+    def many(reqs):
+        dispatches.append(len(reqs))
+        return direct_many(reqs)
+
+    def expect_asr(what, n, encoders=1, int8=INT8_CALL, grammar=False, steps=True):
+        expect(f"{what} launches {n}", n["layer_norm_cuda"] == MIN_LN * encoders
+               and n["flash_attention_packed"] == MIN_FLASH * encoders
+               and n["flash_attention"] == n["ancestry_attention"] == 0
+               and n["int8_matmul"] == int8
+               and n["fused_gpt_step"] == n["fused_gpt_head"] == 0
+               and (not steps or n["fused_decode_step"] == n["fused_logits_topk"] >= 1)
+               and n["fused_logits_topk(grammar)"] == (n["fused_logits_topk"] if grammar else 0))
+
+    inputs = _ingest_inputs(40)
+    wav44 = inputs["wav 16-bit 44.1 kHz stereo"][0]
+    raw, raw_kw = inputs["raw s16le 16 kHz mono"]
+    audio44 = load_audio(wav44)
+    want44 = direct_one(audio44, beam_size=beam)
+    pcm_headers = {"X-Audio-Codec": "pcm", "X-Audio-Sample-Rate": "16000",
+                   "X-Audio-Bits": "16", "X-Audio-Channel": "1"}
+
+    async def asr_routes():
+        loop = asyncio.get_running_loop()
+        rep, n, ms = await _counted_async(every, app.asr(state, {}, wav44))
+        expect(f"/api/asr {rep.status} {rep.json}", rep.status == 200
+               and set(rep.json) == ASR_FIELDS and rep.json["text"] == want44.text
+               and rep.json["audio_duration"] == 3840)
+        expect_asr("/api/asr", n)
+        print(f"/api/asr (3.84 s WAV, 44.1 kHz stereo, large-v2 beam 5): {ms:.2f} ms ({card}), "
+              f"text equal to engine.transcribe on the decoded audio: True; launches: "
+              f"{_launches(n)}")
+
+        # the ms a core adds over executor.submit_sync, in turns: /api/asr on
+        # the 44.1 kHz WAV, /api/willow on the same samples as 16 kHz PCM
+        # (no resampling), and the decode of the WAV alone
+        pcm44 = (np.clip(audio44, -1, 1) * 32767).astype("<i2").tobytes()
+        want_pcm = direct_one(load_audio(pcm44, **raw_kw), beam_size=beam)
+        times = {"asr core": [], "willow core (PCM)": [], "submit_sync": [], "decode": []}
+        sides = [
+            ("asr core", lambda: app.asr(state, {}, wav44), want44.text),
+            ("willow core (PCM)", lambda: app.willow(state, {}, pcm_headers, pcm44),
+             want_pcm.text),
+            ("submit_sync", lambda: loop.run_in_executor(
+                None, state.executor.submit_sync,
+                ASRRequest(audio=audio44, model=model, beam_size=beam)), want44.text),
+        ]
+        for i in range(6):
+            for name, call, text in sides[i % 3:] + sides[:i % 3]:
+                t0 = time.perf_counter()
+                out = await call()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                got = out.json["text"] if isinstance(out, app.Reply) else out.text
+                expect(f"timed request {name} text {got!r}", got == text)
+            t0 = time.perf_counter()
+            load_audio(wav44)
+            times["decode"].append((time.perf_counter() - t0) * 1e3)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        added = {k: med[k] - med["submit_sync"] for k in ("asr core", "willow core (PCM)")}
+        print(f"core ms over executor.submit_sync, 6 turns ({card}): " + "; ".join(
+            f"{k} median {med[k]:.2f} ({', '.join(f'{t:.2f}' for t in v)})"
+            for k, v in times.items()) + f" → /api/asr adds {added['asr core']:.2f} ms, "
+            f"/api/willow PCM {added['willow core (PCM)']:.2f} ms")
+
+        rep, n, ms = await _counted_async(every, app.asr(state, {"timestamps": "true"}, wav44))
+        expect(f"timestamps {rep.status} {rep.json}", rep.status == 200
+               and set(rep.json) == ASR_FIELDS | {"segments"} and all(
+                   0.0 <= g["start"] <= g["end"] <= 30.0 for g in rep.json["segments"]))
+        expect_asr("timestamps", n, grammar=True)
+        print(f"/api/asr?timestamps=true: {ms:.2f} ms, {len(rep.json['segments'])} segments; "
+              f"launches: {_launches(n)}")
+
+        rep, n, ms = await _counted_async(every, app.asr(state, {"word_timestamps": "1"}, wav44))
+        expect(f"word timestamps {rep.status} {sorted(rep.json)}", rep.status == 200
+               and set(rep.json) == ASR_FIELDS | {"words"} and bool(rep.json["words"]))
+        # phase 11's word-timestamps launches: the alignment call encodes again
+        expect_asr("word timestamps", n, encoders=2, int8=2 * INT8_CALL, steps=False)
+        print(f"/api/asr?word_timestamps=true: {ms:.2f} ms, {len(rep.json['words'])} words; "
+              f"launches: {_launches(n)}")
+
+        rep, n, ms = await _counted_async(every, app.asr(state, {"detect_language": "true"},
+                                                         wav44))
+        expect(f"detect {rep.status} {rep.json}", rep.status == 200
+               and set(rep.json) == ASR_FIELDS and rep.json["language"])
+        expect_asr("detect", n, int8=INT8_CALL + INT8_PASS)
+        print(f"/api/asr?detect_language=true: {ms:.2f} ms, language {rep.json['language']!r}; "
+              f"launches: {_launches(n)}")
+
+        # four at once: 16 kHz WAVs, whose decode (~0.1 ms) lets all four
+        # reach the batcher inside its 4 ms window
+        bodies = [pcm_to_wav_bytes(_audio_i16(3840, 300 + i) / 32768.0) for i in range(4)]
+        dispatches.clear()
+        replies, n, ms = await _counted_async(every, asyncio.gather(
+            *(app.asr(state, {}, b) for b in bodies)))
+        expect(f"four at once: dispatches {dispatches}", dispatches == [4])
+        (direct, n_direct, _) = await _counted_async(every, loop.run_in_executor(
+            None, direct_many, [ASRRequest(audio=load_audio(b), model=model, beam_size=beam)
+                                for b in bodies]))
+        expect(f"four at once: {[r.json['text'] for r in replies]} against "
+               f"{[r.text for r in direct]}; launches {n} against {n_direct}",
+               [r.status for r in replies] == [200] * 4 and n == n_direct
+               and [r.json["text"] for r in replies] == [r.text for r in direct])
+        expect_asr("four at once", n)
+        print(f"/api/asr × 4 at once (asyncio.gather): one dispatch of 4 in {ms:.2f} ms "
+              f"({card}), launches equal to the direct transcribe_coalesced ({_launches(n)}), "
+              f"tokens equal: True")
+        dispatches.clear()
+        await asyncio.gather(*(app.asr(state, {}, wav44) for _ in range(4)))
+        print(f"/api/asr × 4 at once with the 44.1 kHz stereo WAV (each decoded on the event "
+              f"loop first): dispatches {dispatches}")
+
+        dispatches.clear()
+        for query, body, needle in (({"beam_size": "99"}, wav44, "beam"),
+                                    ({"force_language": "yue"}, wav44, "large-v3"),
+                                    ({"force_language": "xx"}, wav44, "Invalid force_language"),
+                                    ({}, b"these bytes are no audio", "Invalid audio")):
+            rep, n, ms = await _counted_async(every, app.asr(state, query, body))
+            expect(f"refused {query}: {rep.status} {rep.json} {n} depth "
+                   f"{state.executor.queue_depth} {dispatches}",
+                   rep.status == 400 and needle in rep.json["error"] and not any(n.values())
+                   and state.executor.queue_depth == 0 and dispatches == [])
+            print(f"/api/asr refused {query or 'no audio'}: 400 {rep.json['error']!r} in "
+                  f"{ms:.3f} ms, 0 launches, queue depth 0, nothing dispatched")
+
+        # /api/willow
+        want_raw = direct_one(load_audio(raw, **raw_kw), beam_size=beam)
+        rep, n, ms = await _counted_async(every, app.willow(state, {"stats": "true"},
+                                                            pcm_headers, raw))
+        expect(f"/api/willow pcm {rep.status} {rep.json}", rep.status == 200
+               and set(rep.json) == ASR_FIELDS and rep.json["text"] == want_raw.text)
+        expect_asr("/api/willow pcm", n)
+        print(f"/api/willow (raw s16le 16 kHz, x-audio-* headers, stats): {ms:.2f} ms ({card}), "
+              f"text equal to engine.transcribe: True; launches: {_launches(n)}")
+        rep, n, ms = await _counted_async(every, app.willow(
+            state, {"save_audio": "true"}, {"x-audio-codec": "wav"}, wav44))
+        with open(state.save_audio_path, "rb") as f:
+            saved = f.read()
+        expect(f"/api/willow save_audio {rep.status} {rep.json}", rep.status == 200
+               and set(rep.json) == {"language", "text"} and rep.json["text"] == want44.text
+               and saved == pcm_to_wav_bytes(audio44)
+               and load_audio(saved).shape == audio44.shape)
+        expect_asr("/api/willow wav", n)
+        print(f"/api/willow?save_audio=true (WAV): {ms:.2f} ms; {len(saved)} bytes written to "
+              f"the temporary static root, decoding to the request's {audio44.shape[0]} samples")
+
+        # speaker verification: no voice enrolled yet, so none matches
+        alice = pcm_to_wav_bytes(_voice_audio(4.0, 210.0, 91))
+        bob = pcm_to_wav_bytes(_voice_audio(4.0, 105.0, 92))
+        rep, n, ms = await _counted_async(every, app.willow(
+            state, {"voice_auth": "true"}, {"x-audio-codec": "wav"}, alice))
+        expect(f"unknown voice {rep.status} {rep.text} {n}", rep.status == 406
+               and rep.text == "Unauthorized voice" and not any(n.values()))
+        print(f"/api/willow?voice_auth=true, no voice enrolled: 406 in {ms:.2f} ms (the WavLM "
+              f"embedder built at first use), no ASR launch")
+        rep = await app.sv(state, {"enroll": "../x"}, alice)
+        expect(f"enroll=../x {rep.status} {rep.json}", rep.status == 400
+               and rep.json == {"error": "Invalid speaker name"}
+               and not os.path.exists(s.sv_speaker_dir))
+        sv_ms = {}
+        for name, body in (("alice", alice), ("bob", bob)):
+            t0 = time.perf_counter()
+            rep = await app.sv(state, {"enroll": name}, body)
+            sv_ms[f"enrol {name}"] = (time.perf_counter() - t0) * 1e3
+            expect(f"enrol {name}: {rep.status} {rep.json}",
+                   rep.status == 200 and rep.json == {"enrolled": name})
+        t0 = time.perf_counter()
+        rep = await app.sv(state, {}, alice)
+        sv_ms["verify"] = (time.perf_counter() - t0) * 1e3
+        hits = rep.json["speakers"]
+        expect(f"verify {rep.status} {hits}", rep.status == 200 and next(iter(hits)) == "alice"
+               and hits["alice"] >= 0.99
+               and sorted(os.listdir(s.sv_speaker_dir)) == ["alice.npy", "bob.npy"])
+        print(f"/api/sv: enroll=../x refused 400 before any file was written; "
+              f"{', '.join(f'{k} {v:.2f} ms' for k, v in sv_ms.items())} ({card}): {hits}")
+        rep, n, ms = await _counted_async(every, app.willow(
+            state, {"voice_auth": "true"}, {"x-audio-codec": "wav"}, alice))
+        expect(f"enrolled voice {rep.status} {rep.json}", rep.status == 200
+               and set(rep.json) == ASR_FIELDS | {"voice_auth", "speaker_status"}
+               and rep.json["speaker_status"] == "I heard alice say:"
+               and rep.json["voice_auth"]["alice"] >= 0.99)
+        expect_asr("/api/willow voice_auth", n)
+        print(f"/api/willow?voice_auth=true, alice enrolled: {ms:.2f} ms, "
+              f"{rep.json['speaker_status']!r} {rep.json['voice_auth']}; launches: "
+              f"{_launches(n)}")
+
+        # the WebSocket loop on phase 11's frames
+        pcm = _audio_i16(3840, 330)
+
+        async def messages():
+            yield json.dumps({"type": "start", "obj": {"sample_rate": 16000, "bits": 16,
+                                                       "channel": 1}})
+            for i in range(0, pcm.shape[0], 320):  # 20 ms frames
+                yield pcm[i:i + 320].astype("<i2").tobytes()
+            yield json.dumps({"type": "stop", "obj": {}})
+            yield "{not json"
+
+        async def frames():
+            return [json.loads(m) async for m in app.run_ws(app.ws_session(state, {}),
+                                                             messages())]
+
+        out, n, ms = await _counted_async(every, frames())
+        expect(f"WS frames {out}", [m["type"] for m in out] == ["log", "infer", "log", "error"]
+               and out[1]["obj"]["text"] == session_text
+               and out[1]["obj"]["audio_duration"] == 3840)
+        expect_asr("WS", n)
+        print(f"/api/ws/asr (run_ws): start, 192 frames of 20 ms, stop, a malformed message → "
+              f"log, infer, log, error in {ms:.2f} ms ({card}); text equal to phase 11's session "
+              f"text: True; error frame {out[3]['obj']['msg'][:40]!r}; launches: {_launches(n)}")
+
+        ping = await app.ping(state)
+        st = await app.status(state)
+        doc = await app.openapi(state)
+        docs = await app.docs(state)
+        expect(f"ping {ping.json}; status {st.json}; openapi {sorted(doc.json['paths'])}",
+               ping.json == {"message": "pong"}
+               and st.json["devices"] == [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+               and model in st.json["models_loaded"] and st.json["queue_depth"] == 0
+               and len(doc.json["paths"]) == 7 and docs.content_type == "text/html")
+        print(f"/api/status: devices {st.json['devices']}, models {st.json['models_loaded']}, "
+              f"queue depth 0, {st.json['compiled_programs']} programs; /api/ping, "
+              f"/api/openapi.json (7 paths), /api/docs answer")
+
+    async def tts_routes():
+        cap = xtts.cfg.gpt.max_audio_tokens
+        voc = xtts.cfg.vocoder
+        cap_bytes = 2 * (cap * voc.gpt_code_stride * voc.sample_rate // voc.input_sample_rate)
+        q = {"text": TTS_TEXT, "min_audio_tokens": str(TTS_MIN_TOKENS)}
+        (chunks, first, total), n, ms = await _counted_async(every, _collect(
+            tts_app.tts_get(tts, dict(q, speaker="nobody"))))
+        voices = (await tts_app.tts_speakers_list(tts)).json["speakers"]
+        expect(f"provisioning stream: {len(chunks)} chunks, voices {voices}, launches {n}",
+               voices == ["CLB", "default", "female", "male"]
+               and chunks[0] == wav_stream_header(sr=voc.sample_rate)
+               and sum(len(c) for c in chunks[1:]) == cap_bytes
+               and n["fused_gpt_step"] == cap and n["fused_gpt_head"] == 0
+               and n["int8_matmul"] == 180
+               and not any(v for k, v in n.items()
+                           if k not in ("fused_gpt_step", "int8_matmul")))
+        print(f"/api/tts, unknown speaker, empty store: 4 built-in voices cloned and "
+              f"{len(chunks) - 1} chunks streamed ({cap_bytes // 2} samples) in {ms:.2f} ms; "
+              f"launches: {_launches(n)} ({card})")
+
+        ttfc, totals = [], []
+        for _ in range(5):
+            (chunks, first, total), n, _ = await _counted_async(every, _collect(
+                tts_app.tts_get(tts, dict(q, speaker="default"))))
+            expect(f"stream launches {n}", n["fused_gpt_step"] == cap
+                   and n["fused_gpt_head"] == 0 and n["int8_matmul"] == 180
+                   and sum(len(c) for c in chunks[1:]) == cap_bytes)
+            ttfc.append(first)
+            totals.append(total)
+        print(f"/api/tts (default voice, {len(TTS_TEXT)} characters, {cap} tokens): time to the "
+              f"first chunk median {statistics.median(ttfc):.2f} ms "
+              f"({', '.join(f'{t:.2f}' for t in ttfc)}), stream median "
+              f"{statistics.median(totals):.2f} ms ({', '.join(f'{t:.2f}' for t in totals)}), "
+              f"host clock ({card})")
+
+        greedy = [dict(q, speaker=v, do_sample="false") for v in ("female", "male")]
+        lone = [b"".join((await _collect(tts_app.tts_get(tts, g)))[0]) for g in greedy]
+        t0 = time.perf_counter()
+        together = await asyncio.gather(*(_collect(tts_app.tts_get(tts, g)) for g in greedy))
+        both_ms = (time.perf_counter() - t0) * 1e3
+        together = [b"".join(c[0]) for c in together]
+        expect(f"two concurrent greedy streams equal to their lone runs: "
+               f"{[a == b for a, b in zip(together, lone)]}",
+               together == lone and lone[0] != lone[1]
+               and all(len(b) == 44 + cap_bytes for b in lone))
+        print(f"/api/tts × 2 at once (do_sample=false, voices female and male): "
+              f"{both_ms:.2f} ms, each stream's bytes equal to its lone run: True")
+
+        upload = pcm_to_wav_bytes(CLONE_AUDIO)
+        t0 = time.perf_counter()
+        rep = await tts_app.tts_enroll(tts, {"speaker": "carol"}, upload)
+        enrol_ms = (time.perf_counter() - t0) * 1e3
+        expect(f"enrol {rep.status} {rep.json}", rep.status == 200
+               and rep.json == {"speaker": "carol", "status": "saved"})
+        t0 = time.perf_counter()
+        rep = await tts_app.clone_speaker(tts, upload)
+        clone_ms = (time.perf_counter() - t0) * 1e3
+        lat = np.asarray(rep.json["gpt_cond_latent"], np.float32)
+        emb = np.asarray(rep.json["speaker_embedding"], np.float32)
+        expect(f"clone {lat.shape} {emb.shape}", rep.status == 200
+               and lat.shape == (xtts.cfg.cond_len, xtts.cfg.gpt.d_model)
+               and emb.shape == (voc.cond_dim,) and np.isfinite(lat).all())
+        chunks, first, total = await _collect(tts_app.tts_stream(
+            tts, dict(rep.json, text="Hello from the cloned voice.", language="en")))
+        listed = (await tts_app.tts_speakers_list(tts)).json["speakers"]
+        expect(f"/tts_stream {len(chunks)} chunks; speakers {listed}",
+               chunks[0][:4] == b"RIFF" and len(chunks) >= 2
+               and listed == ["CLB", "carol", "default", "female", "male"])
+        print(f"POST /api/tts?speaker=carol (6 s upload): {enrol_ms:.2f} ms; "
+              f"POST /clone_speaker: {clone_ms:.2f} ms, latents {lat.shape}; "
+              f"POST /tts_stream in that voice: "
+              f"{len(chunks) - 1} chunks, first at {first:.2f} ms, {total:.2f} ms; the speakers "
+              f"list {listed} ({card})")
+
+    async def run():
+        state.executor.start()
+        try:
+            await asr_routes()
+            await tts_routes()
+        finally:
+            state.executor.shutdown()
+
+    engine.transcribe, engine.transcribe_coalesced = one, many
+    try:
+        asyncio.run(run())
+    finally:
+        del engine.transcribe, engine.transcribe_coalesced
+        shutil.rmtree(root, ignore_errors=True)
+
+    for cmd in ("run", "run-tts"):
+        res = subprocess.run([sys.executable, "-m", "wis_tpu_torch.cli", cmd, "--help"],
+                             cwd=REPO, capture_output=True, text=True, timeout=120)
+        expect(f"cli {cmd} --help: {res.returncode} {res.stderr[-2000:]}",
+               res.returncode == 0 and "--device" in res.stdout)
+    expect("aiohttp imported by the cores", "aiohttp" not in sys.modules)
+    print("python -m wis_tpu_torch.cli run --help, run-tts --help: exit 0; aiohttp imported: "
+          "False")
 
 
 def main() -> int:
@@ -3002,10 +3417,11 @@ def main() -> int:
     if not (clone_n[0] == xtts.cfg.gpt.max_audio_tokens and clone_n[1] == 0 and clone_n[2] > 0):
         raise AssertionError(f"the cloned-voice stream ran {clone_n[0]} steps / {clone_n[1]} "
                              f"heads / {clone_n[2]} int8_matmul")
-    del xtts
     check_xtts_selftest_cli()
     check_sv(torch, dev)
-    check_serving(torch, dev, engine, counters, served, smi)
+    session_text = check_serving(torch, dev, engine, counters, served, smi)
+    check_apps(torch, dev, engine, counters, xtts, session_text, smi)
+    del xtts
 
     rows = [
         dict(name="layer_norm", source="wis_tpu_torch/csrc/layernorm.cu",

@@ -188,6 +188,8 @@ def test_languages_equal():
     assert tl.EXTRA_V3_LANGUAGES == jl.EXTRA_V3_LANGUAGES
     for name in ("English", "german", "cantonese", "yue", "de"):
         assert tl.to_language_code(name) == jl.to_language_code(name)
+    for name in ("English", " DE ", "yue", "cantonese", "xx", "", "klingon"):
+        assert tl.check_language(name) == jl.check_language(name)
 
 
 def test_settings_defaults_equal():
@@ -197,6 +199,13 @@ def test_settings_defaults_equal():
     port, ref = APISettings(), JaxSettings()
     for f in dataclasses.fields(APISettings):
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    # the HTTP apps' fields
+    assert (port.detect_language, port.cors_allowed_origins, port.basic_auth_user,
+            port.basic_auth_pass, port.rtc_port_start, port.rtc_port_end, port.xtts_quant) == (
+        False, [], None, None, 10000, 10050, "int8") == (
+        ref.detect_language, ref.cors_allowed_origins, ref.basic_auth_user,
+        ref.basic_auth_pass, ref.rtc_port_start, ref.rtc_port_end, ref.xtts_quant)
+    assert APISettings().cors_allowed_origins is not port.cors_allowed_origins
     # the speaker verifier's fields
     assert (port.support_sv, port.sv_threshold, port.sv_speaker_dir) == (
         None, 0.75, "speakers/voice_auth") == (
@@ -240,24 +249,29 @@ def test_kernel_wrappers_have_no_fallback():
 def test_port_imports_no_jax_pydantic_or_aiohttp():
     """Importing every module of the port (the conditioning encoder, WavLM,
     the speaker verifier, the settings loader, the batcher, the replica
-    pool, codecs, ingest, VAD, the streaming session and the recorder among
-    them), chip_smoke.py and chip_profile.py
-    in a fresh interpreter loads neither JAX, pydantic, aiohttp nor the wis_tpu
-    package — the card's machine has none of them."""
+    pool, codecs, ingest, VAD, the streaming session, the recorder and the
+    HTTP apps among them; not ``server.rtc``, which imports aiortc as the
+    JAX module does), chip_smoke.py and chip_profile.py in a fresh
+    interpreter loads neither JAX, pydantic, aiohttp, aiortc nor the
+    wis_tpu package — the card's machine has none of them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import wis_tpu_torch, chip_smoke, chip_profile\n"
         "for m in pkgutil.walk_packages(wis_tpu_torch.__path__, 'wis_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "    if m.name != 'wis_tpu_torch.server.rtc':  # imports aiortc, as wis_tpu's does\n"
+        "        importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'pydantic', 'aiohttp', 'wis_tpu'))\n"
+        "             ('jax', 'jaxlib', 'pydantic', 'aiohttp', 'aiortc', 'wis_tpu'))\n"
         "new = ('wis_tpu_torch.models.xtts.conditioning', 'wis_tpu_torch.models.wavlm',\n"
         "       'wis_tpu_torch.models.wavlm.model', 'wis_tpu_torch.server.sv',\n"
         "       'wis_tpu_torch.settings', 'wis_tpu_torch.runtime.engine',\n"
         "       'wis_tpu_torch.runtime.batcher', 'wis_tpu_torch.parallel.replicas',\n"
         "       'wis_tpu_torch.audio.codecs', 'wis_tpu_torch.audio.ingest',\n"
         "       'wis_tpu_torch.audio.vad', 'wis_tpu_torch.server.session',\n"
-        "       'wis_tpu_torch.server.media')\n"
+        "       'wis_tpu_torch.server.media', 'wis_tpu_torch.server.app',\n"
+        "       'wis_tpu_torch.server.auth', 'wis_tpu_torch.server.schemas',\n"
+        "       'wis_tpu_torch.server.tts_app', 'wis_tpu_torch.server.reply',\n"
+        "       'wis_tpu_torch.utils.logging')\n"
         "bad += [m for m in new if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('wis_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"

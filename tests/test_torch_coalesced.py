@@ -105,18 +105,14 @@ def test_warmup_runs_the_coalesced_top_bucket(engines):
     assert calls == [port.settings.batch_bucket_list()[-1]]
 
 
-def test_api_asr_coalesces_with_the_port_engine(engines):
-    """Four concurrent POST /api/asr through wis_tpu's app and batcher with
-    the port engine: the batcher coalesces them (a half-second window), and
-    each response carries the port's coalesced result for its audio."""
+def _coalesce_four(port, make_app):
+    """Four concurrent POST /api/asr through ``make_app()`` (its batcher
+    with a half-second window) with a spy on the port engine's
+    transcribe_coalesced → (the batch sizes it dispatched, the bodies, the
+    JSON replies)."""
     import aiohttp
     from aiohttp.test_utils import TestClient, TestServer
 
-    from wis_tpu.audio.ingest import load_audio
-    from wis_tpu.server.app import create_app
-    from wis_tpu.settings import APISettings as JaxSettings
-
-    _, port = engines
     calls = []
     real = port.transcribe_coalesced
 
@@ -126,11 +122,9 @@ def test_api_asr_coalesces_with_the_port_engine(engines):
 
     port.transcribe_coalesced = spy
     bodies = [wav_bytes(1.0, 20 + i) for i in range(4)]
-    settings = JaxSettings(whisper_model_default="tiny", dtype="float32", max_decode_tokens=8,
-                           beam_size=1, long_beam_size=5, batch_window_s=0.5)
 
     async def go():
-        client = TestClient(TestServer(create_app(settings=settings, engine=port)))
+        client = TestClient(TestServer(make_app()))
         await client.start_server()
         try:
             async def post(body):
@@ -148,10 +142,48 @@ def test_api_asr_coalesces_with_the_port_engine(engines):
         data = asyncio.run(go())
     finally:
         del port.transcribe_coalesced
+    return calls, bodies, data
+
+
+def test_api_asr_coalesces_with_the_port_engine(engines):
+    """Four concurrent POST /api/asr through wis_tpu's app and batcher with
+    the port engine: the batcher coalesces them (a half-second window), and
+    each response carries the port's coalesced result for its audio."""
+    from wis_tpu.audio.ingest import load_audio
+    from wis_tpu.server.app import create_app
+    from wis_tpu.settings import APISettings as JaxSettings
+
+    _, port = engines
+    settings = JaxSettings(whisper_model_default="tiny", dtype="float32", max_decode_tokens=8,
+                           beam_size=1, long_beam_size=5, batch_window_s=0.5)
+    calls, bodies, data = _coalesce_four(port, lambda: create_app(settings=settings,
+                                                                  engine=port))
     assert calls and sum(calls) == 4 and max(calls) > 1
     assert all(d["audio_duration"] == 1000 and d["language"] == "en" and d["text"]
                for d in data)
     if calls == [4]:  # one batch of all four: exactly the engine's coalesced result
+        want = port.transcribe_coalesced(
+            [ASRRequest(audio=load_audio(b), model="tiny", beam_size=1) for b in bodies])
+        assert [d["text"] for d in data] == [w.text for w in want]
+
+
+def test_api_asr_coalesces_through_the_port_app(engines):
+    """The same four requests through the port's own app and batcher
+    (wis_tpu_torch.server.app): coalesced, each reply the port's coalesced
+    result for its audio."""
+    import dataclasses
+
+    from wis_tpu_torch.audio.ingest import load_audio
+    from wis_tpu_torch.server.app import create_app
+
+    _, port = engines
+    settings = dataclasses.replace(port.settings, batch_window_s=0.5)
+    calls, bodies, data = _coalesce_four(port, lambda: create_app(settings=settings,
+                                                                  engine=port))
+    assert calls and sum(calls) == 4 and max(calls) > 1
+    assert all(d["audio_duration"] == 1000 and d["language"] == "en" and d["text"]
+               for d in data)
+    if calls == [4]:
         want = port.transcribe_coalesced(
             [ASRRequest(audio=load_audio(b), model="tiny", beam_size=1) for b in bodies])
         assert [d["text"] for d in data] == [w.text for w in want]

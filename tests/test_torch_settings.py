@@ -56,6 +56,10 @@ ENVIRONMENTS = {
     "strings": {"WHISPER_MODEL_DEFAULT": "large", "REPLICA_POOL": "off",
                 "XTTS_SPEAKER_DIR": "/srv/voices", "NAME": "wis"},
     "int_kept_raw_zero_fraction": {"BEAM_SIZE": " 5.00 ", "WARMUP_ITERATIONS": "+2.0"},
+    "serving_csv": {"CORS_ALLOWED_ORIGINS": "https://a.example, https://b.example",
+                    "BASIC_AUTH_USER": "u", "BASIC_AUTH_PASS": "p:w", "DETECT_LANGUAGE": "on",
+                    "RTC_PORT_START": "20000", "RTC_PORT_END": " 20010 ", "XTTS_QUANT": "none"},
+    "serving_json": {"CORS_ALLOWED_ORIGINS": '["*"]', "basic_auth_user": ""},
 }
 
 

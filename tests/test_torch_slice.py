@@ -456,20 +456,14 @@ def test_engine_serves_what_was_not_ported(engines):
     assert len(out) == 2 and all(r.audio_duration_ms == 1000 for r in out)
 
 
-def test_api_asr_served_by_port_engine(engines):
-    """POST /api/asr through wis_tpu's aiohttp app with the port engine:
-    the response fields of tests/test_server.py, and the engine's text."""
+def _post_asr(app, body):
+    """POST /api/asr of a WAV on ``app`` under aiohttp's test client → the
+    JSON reply."""
     import aiohttp
     from aiohttp.test_utils import TestClient, TestServer
 
-    from wis_tpu.audio.ingest import load_audio
-    from wis_tpu.server.app import create_app
-
-    _, port = engines
-    body = wav_bytes(1.0, 0)
-
     async def go():
-        client = TestClient(TestServer(create_app(settings=_jax_settings(), engine=port)))
+        client = TestClient(TestServer(app))
         await client.start_server()
         try:
             form = aiohttp.FormData()
@@ -480,8 +474,39 @@ def test_api_asr_served_by_port_engine(engines):
         finally:
             await client.close()
 
-    data = asyncio.run(go())
+    return asyncio.run(go())
+
+
+def test_api_asr_served_by_port_engine(engines):
+    """POST /api/asr through wis_tpu's aiohttp app with the port engine:
+    the response fields of tests/test_server.py, and the engine's text."""
+    from wis_tpu.audio.ingest import load_audio
+    from wis_tpu.server.app import create_app
+
+    _, port = engines
+    body = wav_bytes(1.0, 0)
+    data = _post_asr(create_app(settings=_jax_settings(), engine=port), body)
     assert set(data) >= {"infer_time", "infer_speedup", "audio_duration", "language", "text"}
     assert data["audio_duration"] == 1000
     assert data["language"] == "en"
     assert data["text"] == port.transcribe(load_audio(body), beam_size=1).text
+
+
+def test_api_asr_served_by_the_port_app(engines):
+    """The same request through the port's own app (wis_tpu_torch.server.app)
+    and its batcher: the same fields and the engine's text, and the reply
+    wis_tpu's app gives with the port engine."""
+    from wis_tpu.server.app import create_app as jax_create_app
+    from wis_tpu_torch.audio.ingest import load_audio
+    from wis_tpu_torch.server.app import create_app
+
+    _, port = engines
+    body = wav_bytes(1.0, 0)
+    data = _post_asr(create_app(settings=port.settings, engine=port), body)
+    assert set(data) == {"infer_time", "infer_speedup", "audio_duration", "language", "text"}
+    assert (data["audio_duration"], data["language"]) == (1000, "en")
+    assert data["text"] == port.transcribe(load_audio(body), beam_size=1).text
+    via_jax = _post_asr(jax_create_app(settings=_jax_settings(), engine=port), body)
+    clocks = ("infer_time", "infer_speedup")
+    assert {k: v for k, v in data.items() if k not in clocks} == {
+        k: v for k, v in via_jax.items() if k not in clocks}

@@ -4,7 +4,7 @@ tests' micro config with the same seeded weights: the greedy stream on the
 fused path (the kernels' plain versions) and on the eager path, through a
 cache-bucket grow and the remainder chunk at the token cap; a sampled
 stream given JAX's key chain as gumbel rows; and the port's model served by
-wis_tpu's TTS app, cloning voices too.
+wis_tpu's TTS app and by the port's, cloning voices too.
 
 Tolerance: the same chunk count and lengths, and each chunk's samples
 within 1e-3 (f32 activations over int8 weights; the GPT latents agree to
@@ -164,16 +164,27 @@ def test_stream_surface():
 
 
 # --------------------------------------------------------------------------- #
-# served by wis_tpu's TTS app
+# served by wis_tpu's TTS app, and by the port's
 # --------------------------------------------------------------------------- #
-def _serve(model, tmp_path, go):
-    from aiohttp.test_utils import TestClient, TestServer
-
+def _jax_tts_app(model, tmp_path):
     from wis_tpu.server.tts_app import create_tts_app
     from wis_tpu.settings import APISettings
 
+    return create_tts_app(APISettings(xtts_speaker_dir=str(tmp_path)), model=model)
+
+
+def _port_tts_app(model, tmp_path):
+    from wis_tpu_torch.server.tts_app import create_tts_app
+    from wis_tpu_torch.settings import APISettings
+
+    return create_tts_app(APISettings(xtts_speaker_dir=str(tmp_path)), model=model)
+
+
+def _serve(model, tmp_path, go, make_app=_jax_tts_app):
+    from aiohttp.test_utils import TestClient, TestServer
+
     async def runner():
-        app = create_tts_app(APISettings(xtts_speaker_dir=str(tmp_path)), model=model)
+        app = make_app(model, tmp_path)
         client = TestClient(TestServer(app))
         await client.start_server()
         try:
@@ -192,7 +203,7 @@ def _wav_ok(body: bytes) -> int:
     return len(payload) // 2
 
 
-def test_served_by_the_tts_app(tmp_path):
+def test_served_by_the_tts_app(tmp_path, make_app=_jax_tts_app):
     """POST /tts_stream with latents, and GET /api/tts with a voice saved in
     the store: both stream a well-formed WAV of the expected length."""
     _, tcfg = _cfgs(40)
@@ -216,7 +227,12 @@ def test_served_by_the_tts_app(tmp_path):
         resp = await client.get("/api/tts?text=hi&language=xx")
         assert resp.status == 400
 
-    _serve(port, tmp_path, go)
+    _serve(port, tmp_path, go, make_app)
+
+
+def test_served_by_the_port_tts_app(tmp_path):
+    """The same through the port's own TTS app (wis_tpu_torch.server.tts_app)."""
+    test_served_by_the_tts_app(tmp_path, _port_tts_app)
 
 
 def _wav_upload(seconds: float = 2.0) -> bytes:
@@ -234,7 +250,7 @@ def _wav_upload(seconds: float = 2.0) -> bytes:
     return buf.getvalue()
 
 
-def test_the_tts_app_clones_through_the_port(tmp_path):
+def test_the_tts_app_clones_through_the_port(tmp_path, make_app=_jax_tts_app):
     """POST /clone_speaker returns the port's voice, (cond_len, D) latents
     and a cond_dim embedding; GET /api/tts with an empty store provisions
     the built-in voices through clone_speaker and streams a well-formed WAV."""
@@ -264,4 +280,9 @@ def test_the_tts_app_clones_through_the_port(tmp_path):
         saved = json.loads((tmp_path / "female.json").read_text())
         assert np.asarray(saved["gpt_cond_latent"]).shape == (tcfg.cond_len, tcfg.gpt.d_model)
 
-    _serve(port, tmp_path, go)
+    _serve(port, tmp_path, go, make_app)
+
+
+def test_the_port_tts_app_clones(tmp_path):
+    """The same through the port's own TTS app."""
+    test_the_tts_app_clones_through_the_port(tmp_path, _port_tts_app)

@@ -133,3 +133,65 @@ def engine_pair(fused: bool = False, model: str = "tiny", **settings):
         tree = np_tree(jax_engine.registry.get(model).params)
     port = WhisperEngine(ModelRegistry(APISettings(**kw), "cpu", jax_trees={model: tree}))
     return jax_engine, port
+
+
+# --------------------------------------------------------------------------- #
+# the HTTP apps: one request sequence on wis_tpu's app and on the port's
+# --------------------------------------------------------------------------- #
+#: response fields the two engines time on their own clocks
+CLOCKS = ("infer_time", "infer_speedup")
+
+
+async def http_reply(resp):
+    """(status, JSON body or text) of an aiohttp client response."""
+    if resp.content_type == "application/json":
+        return resp.status, await resp.json()
+    return resp.status, await resp.text()
+
+
+def serve(make_app, go):
+    """go(client) against make_app() under aiohttp's test client."""
+    import asyncio
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    async def runner():
+        client = TestClient(TestServer(make_app()))
+        await client.start_server()
+        try:
+            return await go(client)
+        finally:
+            await client.close()
+
+    return asyncio.run(runner())
+
+
+def comparable(replies):
+    """(status, body) replies with the engines' clock fields dropped."""
+    return [(status, {k: v for k, v in body.items() if k not in CLOCKS}
+             if isinstance(body, dict) else body) for status, body in replies]
+
+
+def replay(engines, go, static_root=None, **settings):
+    """go(client) → a list of (status, body), on wis_tpu's ASR app with the
+    pair's JAX engine, then on the port's with its engine (both with
+    ``settings`` over the pair's, ``static_root``/jax and /port); asserts
+    the two lists equal but for the clock fields, and equal field sets;
+    → the port's replies."""
+    import dataclasses
+
+    from wis_tpu.server.app import create_app as jax_create_app
+    from wis_tpu_torch.server.app import create_app
+
+    jax_engine, port = engines
+    js = jax_engine.settings.model_copy(update=settings)
+    ps = dataclasses.replace(port.settings, **settings)
+    want = serve(lambda: jax_create_app(settings=js, engine=jax_engine,
+                                        static_root=static_root and f"{static_root}/jax"), go)
+    got = serve(lambda: create_app(settings=ps, engine=port,
+                                   static_root=static_root and f"{static_root}/port"), go)
+    assert comparable(got) == comparable(want)
+    for (_, g), (_, w) in zip(got, want):
+        if isinstance(g, dict):
+            assert set(g) == set(w)
+    return got

@@ -12,15 +12,20 @@ counterpart is easy to find:
     wis_tpu_torch.runtime   — model registry, transcription engine and the
                               dynamic batcher
     wis_tpu_torch.parallel  — one engine replica per CUDA device
-    wis_tpu_torch.server    — the layers below HTTP: streaming session,
-                              WebRTC recorder, speaker verification
+    wis_tpu_torch.server    — the ASR and TTS HTTP apps (a transport-free
+                              core per route, aiohttp adapters), auth,
+                              the OpenAPI document, WebRTC, the streaming
+                              session, speaker verification
     wis_tpu_torch.settings  — settings from the environment
-    wis_tpu_torch.utils     — the converter self-test
-    wis_tpu_torch.cli       — ``python -m wis_tpu_torch.cli convert-model``
+    wis_tpu_torch.utils     — the converter self-test, logging setup
+    wis_tpu_torch.cli       — ``python -m wis_tpu_torch.cli run``,
+                              ``run-tts`` and ``convert-model``
 
 It imports ``torch`` and never ``jax``: nothing here loads the
-``wis_tpu`` package, so it runs on a machine without JAX. The JAX package
-is the reference the CPU tests hold this port against.
+``wis_tpu`` package, so it runs on a machine without JAX. aiohttp and
+aiortc are imported only by the functions that build or serve a web
+application (``server/rtc.py`` imports aiortc, as ``wis_tpu``'s does).
+The JAX package is the reference the CPU tests hold this port against.
 """
 
 __version__ = "0.1.0"

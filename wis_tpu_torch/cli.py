@@ -1,7 +1,15 @@
 """Command line of the PyTorch port.
 
+    python -m wis_tpu_torch.cli run [--port 19000] [--no-warmup] [--tls-cert C --tls-key K]
+                                    [--device cuda]
+    python -m wis_tpu_torch.cli run-tts [--port 19010] [--device cuda]
     python -m wis_tpu_torch.cli convert-model --selftest <size|xtts> [--no-forward]
     python -m wis_tpu_torch.cli convert-model <src> --size <size>
+
+``run`` and ``run-tts`` are ``wisctl run`` and ``wisctl run-tts`` on the
+port's apps (``server/app.py``, ``server/tts_app.py``): the ASR server,
+TLS-direct when a certificate and key are given, with a keep-alive of an
+hour, and the TTS server. They need aiohttp; their ``--help`` does not.
 
 ``convert-model`` is the port's counterpart of ``wisctl convert-model``:
 ``--selftest <size>`` converts a synthetic full-dims HF Whisper
@@ -64,6 +72,45 @@ def cmd_convert_model(args) -> int:
     return 0
 
 
+def _aiohttp_web():
+    try:
+        from aiohttp import web
+    except ImportError as e:
+        raise ImportError(f"serving needs aiohttp, which is not installed ({e})") from e
+    return web
+
+
+def cmd_run(args) -> int:
+    import ssl
+
+    from wis_tpu_torch.server.app import create_app
+    from wis_tpu_torch.utils.logging import configure_logging
+
+    web = _aiohttp_web()
+    configure_logging()
+    ssl_ctx = None
+    if args.tls_cert and args.tls_key:
+        ssl_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ssl_ctx.load_cert_chain(args.tls_cert, args.tls_key)
+    web.run_app(
+        create_app(warmup=not args.no_warmup, device=args.device),
+        port=args.port,
+        ssl_context=ssl_ctx,
+        keepalive_timeout=3600,
+    )
+    return 0
+
+
+def cmd_run_tts(args) -> int:
+    from wis_tpu_torch.server.tts_app import create_tts_app
+    from wis_tpu_torch.utils.logging import configure_logging
+
+    web = _aiohttp_web()
+    configure_logging()
+    web.run_app(create_tts_app(device=args.device), port=args.port)
+    return 0
+
+
 def _size(name: str) -> str:
     from wis_tpu_torch.models.whisper.config import resolve_model_name
 
@@ -81,6 +128,18 @@ def _selftest_size(name: str) -> str:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m wis_tpu_torch.cli")
     sub = parser.add_subparsers(dest="cmd", required=True)
+    device_help = "cuda (the default), cuda:N or cpu"
+    r = sub.add_parser("run", help="start the ASR server (needs aiohttp)")
+    r.add_argument("--port", type=int, default=19000)
+    r.add_argument("--no-warmup", action="store_true")
+    r.add_argument("--tls-cert", help="serve TLS directly (cert path)")
+    r.add_argument("--tls-key", help="serve TLS directly (key path)")
+    r.add_argument("--device", default="cuda", help=device_help)
+    r.set_defaults(fn=cmd_run)
+    t = sub.add_parser("run-tts", help="start the TTS server (needs aiohttp)")
+    t.add_argument("--port", type=int, default=19010)
+    t.add_argument("--device", default="cuda", help=device_help)
+    t.set_defaults(fn=cmd_run_tts)
     c = sub.add_parser(
         "convert-model",
         help="validate a local HF checkpoint, or --selftest the converter "
@@ -94,8 +153,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "(or of XTTS v2: xtts) and convert it")
     c.add_argument("--no-forward", action="store_true",
                    help="with --selftest: skip the forward passes")
-    c.add_argument("--device", default="cuda",
-                   help="cuda (the default), cuda:N or cpu")
+    c.add_argument("--device", default="cuda", help=device_help)
     c.set_defaults(fn=cmd_convert_model)
     return parser
 

@@ -57,6 +57,16 @@ TO_LANGUAGE_CODE.update(
 )
 
 
+def check_language(language: str) -> bool:
+    """Validate a user-supplied language code or name."""
+    if not language:
+        return False
+    lang = language.strip().lower()
+    return (
+        lang in LANGUAGES or lang in TO_LANGUAGE_CODE or lang in EXTRA_V3_LANGUAGES
+    )
+
+
 def to_language_code(language: str) -> str:
     """Normalize a code or natural name to a Whisper language code."""
     lang = language.strip().lower()

@@ -1,1 +1,3 @@
-"""Host-side services of the port that need no HTTP framework."""
+"""The serving layer: the ASR and TTS apps and the services below them.
+aiohttp and aiortc are imported only where an application is built or
+served."""

@@ -1,7 +1,7 @@
 """Settings from the environment — the ``wis_tpu.settings.APISettings``
 fields the ASR engine, the model registry, the dynamic batcher, the
-replica pool, the streaming session and the speaker verifier read, with
-the same names and defaults.
+replica pool, the streaming session, the speaker verifier and the HTTP
+apps read, with the same names and defaults.
 
 ``wis_tpu.settings`` needs pydantic, which the card's machine does not
 have, so the port carries a plain dataclass and the JAX package's
@@ -69,6 +69,8 @@ class APISettings:
     long_beam_size_threshold: int = 12000
     #: default language
     language: str = "en"
+    #: detect the language by default
+    detect_language: bool = False
 
     preload_all_models: bool = False
     preload_whisper_model_tiny: bool = True
@@ -155,6 +157,17 @@ class APISettings:
     sv_threshold: float = 0.75
     #: directory of enrolled speaker embeddings (<name>.npy)
     sv_speaker_dir: str = "speakers/voice_auth"
+
+    #: origins answered with CORS headers (["*"]: any)
+    cors_allowed_origins: List[str] = field(default_factory=list)
+    #: HTTP Basic auth; a falsy user or password skips that half of the check
+    basic_auth_user: Optional[str] = None
+    basic_auth_pass: Optional[str] = None
+    #: UDP port range of the WebRTC media
+    rtc_port_start: int = 10000
+    rtc_port_end: int = 10050
+    #: XTTS GPT weight quantization: "int8" | "none"
+    xtts_quant: str = "int8"
 
     def batch_bucket_list(self) -> List[int]:
         return sorted(int(b) for b in self.batch_buckets)
