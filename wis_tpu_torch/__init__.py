@@ -17,9 +17,13 @@ counterpart is easy to find:
                               the OpenAPI document, WebRTC, the streaming
                               session, speaker verification
     wis_tpu_torch.settings  — settings from the environment
-    wis_tpu_torch.utils     — the converter self-test, logging setup
+    wis_tpu_torch.utils     — the converter self-test, logging setup,
+                              the edge-config checks
+    wis_tpu_torch.bench     — the reference-table benchmark on the card
+    wis_tpu_torch.entry     — ``entry()``: large-v2's forward step
     wis_tpu_torch.cli       — ``python -m wis_tpu_torch.cli run``,
-                              ``run-tts`` and ``convert-model``
+                              ``run-tts``, ``convert-model``, ``bench``,
+                              ``check`` and ``check-edge``
 
 It imports ``torch`` and never ``jax``: nothing here loads the
 ``wis_tpu`` package, so it runs on a machine without JAX. aiohttp and
@@ -28,6 +32,6 @@ application (``server/rtc.py`` imports aiortc, as ``wis_tpu``'s does).
 The JAX package is the reference the CPU tests hold this port against.
 """
 
-__version__ = "0.1.0"
+from wis_tpu_torch.version import __version__
 
 __all__ = ["__version__"]

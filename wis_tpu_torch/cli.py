@@ -5,6 +5,9 @@
     python -m wis_tpu_torch.cli run-tts [--port 19010] [--device cuda]
     python -m wis_tpu_torch.cli convert-model --selftest <size|xtts> [--no-forward]
     python -m wis_tpu_torch.cli convert-model <src> --size <size>
+    python -m wis_tpu_torch.cli bench [--device cuda] [--fixtures DIR]
+    python -m wis_tpu_torch.cli check [--device cuda]
+    python -m wis_tpu_torch.cli check-edge
 
 ``run`` and ``run-tts`` are ``wisctl run`` and ``wisctl run-tts`` on the
 port's apps (``server/app.py``, ``server/tts_app.py``): the ASR server,
@@ -22,12 +25,22 @@ checkpoint directory ``<src>`` it converts the safetensors there and runs
 the encoder once. Both print what ``wisctl`` prints. Per the port's device
 policy both run on the card unless ``--device cpu`` asks for the CPU
 (``wisctl`` runs its self-test on the CPU).
+
+``bench`` runs the port's benchmark (``wis_tpu_torch/bench.py``, the rows
+of ``bench.py``). ``check`` is ``wisctl check`` for the port: torch and
+CUDA versions, each visible card's name and power limit, whether the
+kernel library is built and the wisaudio library loads, the default model
+and dtype and the device-memory budget; with ``--device cuda`` (the
+default) it raises without a card. ``check-edge`` is ``wisctl
+check-edge``: the structural nginx and compose checks of the checked-in
+edge configs (``utils/edgecheck.py``), the same report and exit code.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from typing import List, Optional
 
@@ -111,6 +124,81 @@ def cmd_run_tts(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from wis_tpu_torch.bench import main as bench_main
+
+    argv = ["--device", args.device]
+    if args.fixtures:
+        argv += ["--fixtures", args.fixtures]
+    return bench_main(argv)
+
+
+def cmd_check(args) -> int:
+    import torch
+
+    from wis_tpu_torch.audio import codecs
+    from wis_tpu_torch.device import card_info, resolve_device
+    from wis_tpu_torch.ops import _build
+    from wis_tpu_torch.settings import get_api_settings
+
+    device = resolve_device(args.device)
+    print(f"torch {torch.__version__}; CUDA {torch.version.cuda}; device {device}")
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    print(f"CUDA devices: {n}")
+    for i in range(n):
+        info = card_info(i)
+        print(f"  cuda:{i}: {info['name']}, power limit {info['power_limit']}")
+    lib = _build.library_path()
+    print(f"kernel library: {'built' if lib.exists() else 'NOT BUILT'} ({lib})")
+    print(f"native codecs: {'OK' if codecs.native_available() else 'MISSING'}")
+    s = get_api_settings()
+    print(f"default model: {s.whisper_model_default}; dtype {s.dtype}")
+    print(f"HBM budget: {s.hbm_budget_bytes / 2**30:.1f} GiB")
+    return 0
+
+
+def cmd_check_edge(args) -> int:
+    """The structural ``nginx -t`` and ``docker compose config`` checks of
+    the checked-in edge configs."""
+    import glob
+
+    from wis_tpu_torch.utils.edgecheck import (
+        check_compose,
+        check_nginx_conf,
+        parse,
+        render_auth_template,
+        validate,
+    )
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    failures = 0
+
+    def report(label, problems):
+        nonlocal failures
+        if problems:
+            failures += 1
+            print(f"FAIL {label}")
+            for prob in problems:
+                print(f"  {prob}")
+        else:
+            print(f"ok   {label}")
+
+    report("nginx/nginx.conf", check_nginx_conf(os.path.join(root, "nginx/nginx.conf")))
+    with open(os.path.join(root, "nginx/auth.conf.template")) as f:
+        report(
+            "nginx/auth.conf.template",
+            validate(parse(render_auth_template(f.read(), API_KEY="k")), context="http"),
+        )
+    with open(os.path.join(root, "nginx/auth-basic.conf.template")) as f:
+        report(
+            "nginx/auth-basic.conf.template",
+            validate(parse(render_auth_template(f.read(), AUTH_BASIC="off")), context="server"),
+        )
+    for comp in sorted(glob.glob(os.path.join(root, "docker-compose*.yml"))):
+        report(os.path.basename(comp), check_compose(comp, root))
+    return 1 if failures else 0
+
+
 def _size(name: str) -> str:
     from wis_tpu_torch.models.whisper.config import resolve_model_name
 
@@ -155,6 +243,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --selftest: skip the forward passes")
     c.add_argument("--device", default="cuda", help=device_help)
     c.set_defaults(fn=cmd_convert_model)
+    b = sub.add_parser("bench", help="run the benchmark (bench.py's rows)")
+    b.add_argument("--device", default="cuda", help=device_help)
+    b.add_argument("--fixtures", default=None,
+                   help="directory of the reference client's clips; without it, seeded noise")
+    b.set_defaults(fn=cmd_bench)
+    ck = sub.add_parser("check", help="environment / device diagnostic")
+    ck.add_argument("--device", default="cuda", help=device_help)
+    ck.set_defaults(fn=cmd_check)
+    ce = sub.add_parser("check-edge", help="validate nginx + compose configs")
+    ce.set_defaults(fn=cmd_check_edge)
     return parser
 
 

@@ -40,3 +40,23 @@ def resolve_device(device: DeviceLike) -> torch.device:
     # bf16 GEMMs keep f32 accumulation through cuBLAS's split-K reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda", index)
+
+
+def card_info(index: int = 0) -> dict:
+    """{"name", "power_limit"} of CUDA device ``index`` as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` reads them (a card
+    may be set below its maximum power, and then runs slower under load, so
+    every time measured on it is reported beside its limit). Without
+    ``nvidia-smi`` the name is torch's and the limit None."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+        name, limit = (part.strip() for part in out.rsplit(",", 1))
+        return {"name": name, "power_limit": limit}
+    except (OSError, subprocess.SubprocessError, IndexError, ValueError):
+        return {"name": torch.cuda.get_device_name(index), "power_limit": None}
