@@ -167,7 +167,22 @@ exits non-zero without printing a result:
    at BK 13, the TTS row through the fused GPT step;
 15. ``wis_tpu_torch.entry.entry()`` (large-v2's forward step: finite
    (1, 51865) logits, 65 LayerNorm and 32 packed flash launches), then
-   ``python -m wis_tpu_torch.cli check`` and ``check-edge``, each exit 0.
+   ``python -m wis_tpu_torch.cli check`` and ``check-edge``, each exit 0;
+16. tensor and data parallelism: ``wis_tpu_torch.entry.dryrun_multichip(2)``,
+   two ranks of a ``torch.distributed`` world on the one card over gloo (a
+   1×2 mesh; every STAGE OK line), then per rank for the 2-way large-v2
+   3.84 s beam-5 request (and medium's, and XTTS v2's GPT prefill and
+   20-token chunk): each kernel's launches, counted from 0 just before and
+   read just after in the rank, against the single-rank eager request's
+   and the prediction; the ranks' tokens equal; the host ms beside the
+   single-rank request's; a teacher-forced pass's logits within
+   ``entry.TF_REL_TOL`` of the single rank's at every position; layer 0's
+   row-parallel products bit-equal to the single rank's but for at most
+   ``entry.ROW_MISMATCH_MAX`` of the elements, where partial sums rounded
+   to bf16 before the reduce (the control) move more; the
+   vocabulary-sharded heads' ids equal to the whole head's; then each
+   kernel on that path held to its plain version at a rank's shapes and
+   timed (``check_shard_kernels``).
 
 Each phase prints its seconds as it ends. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -990,11 +1005,14 @@ INT8_SHAPES = ((1500, 1280, 1280), (6000, 1280, 1280), (5, 1280, 5120), (5, 5120
                (15, 1280, 5120), (15, 5120, 1280), (289, 1024, 4096))
 
 
-def int8_case(torch, dev, m, k, n):
-    """int8_matmul against its plain version at (M, K, N): each element
-    within 2 bf16 ulps plus 2⁻⁸·max|plain| (the flash rule: f32 sums of the
-    same bf16 products in another order, each side rounded once to bf16)
-    → (x, q, s, max|Δ|); raises past it."""
+def int8_case(torch, dev, m, k, n, out_dtype=None):
+    """int8_matmul against its plain version at (M, K, N) on bf16 x. With a
+    bf16 output each element within 2 bf16 ulps plus 2⁻⁸·max|plain| (the
+    flash rule: f32 sums of the same bf16 products in another order, each
+    side rounded once to bf16); with ``out_dtype`` f32 (the f32 store a
+    row-parallel product's partial sums take) within 1e-5·max|plain|, the
+    two differing only by the order of the f32 sums. → (x, q, s, max|Δ|);
+    raises past it."""
     from wis_tpu_torch.ops.quant import int8_matmul, int8_matmul_plain, quantize_weight
 
     rng = np.random.default_rng(m + k + n)
@@ -1002,16 +1020,24 @@ def int8_case(torch, dev, m, k, n):
     w = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32) * 0.05).to(dev)
     leaf = quantize_weight(w)
     q, sc = leaf["q"], leaf["s"]
-    got = int8_matmul(x, q, sc)
-    want = int8_matmul_plain(x, q, sc)
+    got = int8_matmul(x, q, sc, out_dtype)
+    want = int8_matmul_plain(x, q, sc, out_dtype)
     torch.cuda.synchronize()
     r = want.float()
     d = (got.float() - r).abs()
-    bad = int((d > 2 * _bf16_ulp(r) + 2.0 ** -8 * float(r.abs().max())).sum())
-    print(f"int8_matmul M={m} K={k} N={n}: max|Δ| {float(d.max()):.3e} ({bad} elements over "
-          f"2 bf16 ulps + 2^-8·max|plain|)")
-    if bad or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"int8_matmul M={m} K={k} N={n}: kernel disagrees with plain")
+    f32 = out_dtype == torch.float32
+    if f32:
+        bad = int((d > 1e-5 * float(r.abs().max())).sum())
+        rule = "1e-5·max|plain|"
+    else:
+        bad = int((d > 2 * _bf16_ulp(r) + 2.0 ** -8 * float(r.abs().max())).sum())
+        rule = "2 bf16 ulps + 2^-8·max|plain|"
+    store = "f32" if f32 else "bf16"
+    print(f"int8_matmul M={m} K={k} N={n} {store} store: max|Δ| {float(d.max()):.3e} "
+          f"({bad} elements over {rule})")
+    if bad or got.dtype != want.dtype or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"int8_matmul M={m} K={k} N={n} {store} store: kernel "
+                             f"disagrees with plain")
     return x, q, sc, float(d.max())
 
 
@@ -1365,8 +1391,8 @@ ANC_CASES = ((5, 128, 64, 5), (20, 256, 200, 5), (40, 256, 200, 5), (40, 256, 20
              (5, 100, 99, 5))
 
 
-def _anc_inputs(torch, dev, bk, t, pos, trap, seed, beams=5):
-    """Large-v2 self-attention shapes (H=20, Dh=64) with an ancestry map
+def _anc_inputs(torch, dev, bk, t, pos, trap, seed, beams=5, heads=20):
+    """Large-v2 self-attention shapes (H=20 or ``heads``, Dh=64) with an ancestry map
     scrambled inside each group of ``beams`` rows up to pos and -1 after;
     with ``trap`` the cache columns past pos hold keys of ±1e4 and values
     of 1e4, which a kernel reading them cannot hide."""
@@ -1375,8 +1401,8 @@ def _anc_inputs(torch, dev, bk, t, pos, trap, seed, beams=5):
     def randn(*shape, scale=1.0):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale).to(dev)
 
-    q = randn(bk, 20, 64).to(torch.bfloat16)
-    kc, vc = randn(bk, 20, 64, t, scale=0.5), randn(bk, 20, 64, t)
+    q = randn(bk, heads, 64).to(torch.bfloat16)
+    kc, vc = randn(bk, heads, 64, t, scale=0.5), randn(bk, heads, 64, t)
     if trap:
         kc[..., pos + 1:] = 1e4 * torch.sign(kc[..., pos + 1:])
         vc[..., pos + 1:] = 1e4
@@ -3640,6 +3666,214 @@ def check_entry_points(torch, dev, counters):
             raise AssertionError(f"{' '.join(cmd[1:])} failed: {res.stderr[-3000:]}")
 
 
+# --------------------------------------------------------------------------- #
+# Phase 16: tensor and data parallelism, two ranks on the one card
+# --------------------------------------------------------------------------- #
+#: launches one rank makes for a 3.84 s beam-5 request through the eager
+#: tensor-parallel decoder, as the single-rank eager request (phase 5):
+#: (LayerNorm, packed flash, int8_matmul per request, int8_matmul and
+#: ancestry_attention per decode step) — 2·L_enc+1, L_enc, 10·L_dec,
+#: 8·L_dec and L_dec
+MESH_PREDICTED = {"large-v2": (65, 32, 320, 256, 32), "medium": (49, 24, 240, 192, 24)}
+#: XTTS v2's eager GPT: six int8 products a layer, for the prefill and each token
+XTTS_INT8_PASS = 6 * 30
+#: the shard shapes of the kernels on the 2-way path (each rank's half of
+#: large-v2's heads and hidden width; XTTS v2's GPT at one stream)
+MESH_INT8_SHAPES = ((1500, 1280, 640), (5, 1280, 640), (5, 640, 1280), (5, 1280, 2560),
+                    (5, 2560, 1280), (1, 1024, 512), (1, 512, 1024), (1, 1024, 2048),
+                    (1, 2048, 1024))
+#: the row-parallel products among them (large-v2's o_w and w2, XTTS v2's
+#: proj_w and mlp_w2): ``parallel/axis.row_parallel`` asks the kernel for
+#: its f32 store, the partial sums the ranks reduce
+MESH_INT8_ROW = {(5, 640, 1280), (5, 2560, 1280), (1, 512, 1024), (1, 2048, 1024)}
+
+
+def check_shard_kernels(torch, dev):
+    """Each kernel the 2-way path launches, held to its plain version at a
+    rank's shapes and timed beside its bound and library call: LayerNorm
+    over the replicated (1, 1500, 1280) rows, packed flash on 10 heads of
+    64 (1, 1500, 640), standard and trap inputs, int8_matmul at every
+    MESH_INT8_SHAPES product (the row-parallel ones with the f32 store
+    their partial sums take), ancestry_attention at BK 5 over 10 heads to
+    the request's last position (T 36, pos 35), and the logits head on one
+    rank's half of large-v3's vocabulary, (5, 1280)·(25933, 1280) bf16.
+    → {row name: row numbers}."""
+    from wis_tpu_torch.models.whisper.config import WhisperConfig
+    from wis_tpu_torch.ops.decode_attn import ancestry_attention, ancestry_attention_plain
+    from wis_tpu_torch.ops.flash import flash_attention_packed, flash_attention_packed_plain
+    from wis_tpu_torch.ops.fused_logits import fused_logits_topk, fused_logits_topk_plain
+    from wis_tpu_torch.ops.layernorm import layer_norm_cuda, layer_norm_plain
+    from wis_tpu_torch.ops.quant import int8_matmul, int8_matmul_plain
+
+    rows = {}
+    x, g, b, err = layer_norm_case(torch, dev, 1280, seed=16)
+    bound_ms, bound_by = _bound(2 * x.numel() * 2 + 2 * 1280 * 4, 8 * x.numel(), F32_FLOPS)
+    rows["layer_norm"] = dict(
+        max_abs_err=err, ms=_median_ms(lambda: layer_norm_cuda(x, g, b)),
+        plain_ms=_median_ms(lambda: layer_norm_plain(x, g, b)), bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=_median_ms(lambda: torch.nn.functional.layer_norm(
+            x, (1280,), g.bfloat16(), b.bfloat16())))
+
+    errs = [flash_case(torch, dev, 10, trap, 160 + trap, d=640)[3] for trap in (True, False)]
+    q, k, v, _ = flash_case(torch, dev, 10, False, 160, d=640)
+    qh, kh, vh = (t.view(1, 1500, 10, 64).transpose(1, 2) for t in (q, k, v))
+    bound_ms, bound_by = _bound(4 * q.numel() * 2, 4 * 1500 * 1500 * 640, BF16_FLOPS)
+    rows["flash_attention_packed"] = dict(
+        max_abs_err=max(errs), ms=_median_ms(lambda: flash_attention_packed(q, k, v, 10)),
+        plain_ms=_median_ms(lambda: flash_attention_packed_plain(q, k, v, 10)),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=_median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh)))
+
+    for m, k_, n in MESH_INT8_SHAPES:
+        # a row-parallel product runs as row_parallel runs it: bf16 x, the
+        # f32 store, held to the plain version's f32 result
+        od = torch.float32 if (m, k_, n) in MESH_INT8_ROW else None
+        xi, qi, si, err = int8_case(torch, dev, m, k_, n, od)
+        wb = qi.to(torch.bfloat16) * si.to(torch.bfloat16)
+        out_bytes = 4 if od is not None else 2
+        bound_ms, bound_by = _bound(m * k_ * 2 + k_ * n + n * 4 + m * n * out_bytes,
+                                    2 * m * k_ * n, BF16_FLOPS)
+        rows[f"int8_matmul {m}x{k_}x{n}{' f32 store' if od is not None else ''}"] = dict(
+            max_abs_err=err, ms=_median_ms(lambda: int8_matmul(xi, qi, si, od)),
+            plain_ms=_median_ms(lambda: int8_matmul_plain(xi, qi, si, od), reps=5, replays=5),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=_median_ms(lambda: torch.mm(xi, wb, out_dtype=od) if od is not None
+                                  else torch.mm(xi, wb)))
+
+    # the request's cache (4 prompt + 32 positions) at its last step; the
+    # trap with four unwritten columns past pos
+    bk, pos, heads = 5, 35, 10
+    errs = []
+    for trap, t in ((True, 40), (False, 36)):
+        qa, kc, vc, anc = _anc_inputs(torch, dev, bk, t, pos, trap, seed=161 + trap, heads=heads)
+        got, want = ancestry_attention(qa, kc, vc, anc, pos), ancestry_attention_plain(
+            qa, kc, vc, anc, pos)
+        r = want.float()
+        d = (got.float() - r).abs()
+        bad = int((d > 2 * _bf16_ulp(r) + 2.0 ** -8 * float(r.abs().max())).sum())
+        print(f"ancestry_attention BK={bk} H={heads} Dh=64 T={t} pos={pos}"
+              f"{' trap' if trap else ''}: max|Δ| {float(d.max()):.3e} ({bad} elements over "
+              f"2 bf16 ulps + 2^-8·max|plain|)")
+        expect(f"ancestry_attention at a rank's heads{' (trap)' if trap else ''}",
+               bad == 0 and float(got.float().abs().max()) < 100)
+        errs.append(float(d.max()))
+    n_pos = pos + 1
+    bound_ms, bound_by = _bound(2 * bk * heads * 64 * n_pos * 2 + bk * n_pos * 4
+                                + 2 * bk * heads * 64 * 2, 4 * bk * heads * 64 * n_pos, F32_FLOPS)
+    rows["ancestry_attention"] = dict(
+        max_abs_err=max(errs), ms=_median_ms(lambda: ancestry_attention(qa, kc, vc, anc, pos)),
+        plain_ms=_median_ms(lambda: ancestry_attention_plain(qa, kc, vc, anc, pos), reps=5,
+                            replays=5),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+    shard = WhisperConfig(name="large-v3-vocab-shard", n_vocab=51866 // 2, n_text_state=1280)
+    case = head_case(torch, dev, shard, 5, False, False)
+    args, kw = case["args"], case["kw"]
+    got, want = fused_logits_topk(*args, **kw), fused_logits_topk_plain(*args, **kw)
+    err = float((got[0] - want[0]).abs().max())
+    print(f"{case['name']} (a rank's half of large-v3's vocabulary): values max|Δ| "
+          f"{err:.3e}, lse max|Δ| {float((got[2] - want[2]).abs().max()):.3e} "
+          f"(tolerance {HEAD_ATOL})")
+    expect(f"{case['name']}: kernel disagrees with plain", head_agrees(got, want, False))
+    bound_ms, bound_by = head_bound(shard, 5, False, False)
+    rows["fused_logits_topk"] = dict(
+        max_abs_err=err, ms=_median_ms(lambda: fused_logits_topk(*args, **kw)),
+        plain_ms=_median_ms(lambda: fused_logits_topk_plain(*args, **kw), reps=5, replays=5),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    for name, row in rows.items():
+        print(f"shard shape {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"library {row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)}"
+              f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return rows
+
+
+def _mesh_request_lines(name, stages, predicted=None):
+    """Print one full-width stage per rank and hold it: launches (beside
+    the single-rank request's and the prediction), tokens equal on every
+    rank, host ms beside the single-rank request's, the teacher-forced
+    logits' distance at every position. → the stage's rank reports."""
+    from wis_tpu_torch.entry import ROW_MISMATCH_MAX, TF_REL_TOL
+
+    ref = next(st for st in stages if "tf_rel" in st)
+    for rank, st in enumerate(stages):
+        print(f"{name} rank {rank}: {st['ms']:.2f} ms on the host clock "
+              f"(single-rank eager {ref['single_ms']:.2f} ms), {st['collectives']} "
+              f"collectives, launches {st['launches']}, tokens {st['tokens'].tolist()}")
+    print(f"{name} single rank: launches {ref['single_launches']}, tokens "
+          f"{ref['single_tokens'].tolist()}")
+    same = all(np.array_equal(st["tokens"], stages[0]["tokens"]) for st in stages)
+    rel = np.asarray(ref["tf_rel"])
+    print(f"{name}: every rank's tokens equal: {same}; tokens equal to the single rank's: "
+          f"{np.array_equal(stages[0]['tokens'], ref['single_tokens'])}; teacher-forced "
+          f"logits over {ref['tf_positions']} positions: ‖Δ‖/‖single‖ max {rel.max():.3e}, "
+          f"median {np.median(rel):.3e} (tolerance {TF_REL_TOL}), max|Δ| "
+          f"{ref['tf_max_abs']:.3e}, argmax equal at {ref['tf_argmax_equal']:.3f} of them")
+    expect(f"{name}: the ranks' tokens equal", same)
+    expect(f"{name}: teacher-forced logits within {TF_REL_TOL}", rel.max() <= TF_REL_TOL)
+    for k, r in ref["row_parallel"].items():
+        print(f"{name} row-parallel {k} (layer 0, bf16 x): {r['frac']:.3e} of the elements "
+              f"off the single-rank product (at most {ROW_MISMATCH_MAX}), max|Δ| "
+              f"{r['max_abs']:.3e}; partial sums rounded to bf16 before the reduce (the "
+              f"control) {r['ctl_frac']:.3e}")
+        expect(f"{name} row-parallel {k}: {r}", r["frac"] <= ROW_MISMATCH_MAX < r["ctl_frac"])
+    if predicted:
+        ln, fl, per_req, per_step, anc = predicted
+        for rank, st in enumerate(stages):
+            n = st["launches"]
+            steps = n["ancestry_attention"] // anc
+            ok = (n["layer_norm_cuda"] == ln and n["flash_attention_packed"] == fl
+                  and n["ancestry_attention"] == anc * steps
+                  and n["int8_matmul"] == per_req + per_step * steps
+                  and n == ref["single_launches"])
+            print(f"{name} rank {rank}: prediction LayerNorm {ln}, packed flash {fl}, "
+                  f"ancestry_attention {anc} a step, int8_matmul {per_req} + {per_step} a "
+                  f"step, the single rank's counts: {steps} steps, held {ok}")
+            expect(f"{name} rank {rank} launches {n}", ok)
+    return stages
+
+
+def check_mesh(torch, dev, card):
+    """Phase 16: ``wis_tpu_torch.entry.dryrun_multichip(2)`` — two ranks on
+    the one card over gloo, a 1×2 mesh — then each stage's numbers per
+    rank, and the kernels at a rank's shapes (``check_shard_kernels``).
+    → (the dryrun's report, the shard rows)."""
+    from wis_tpu_torch.entry import VOCAB_HEAD_CASES, dryrun_multichip
+
+    print(f"phase 16 on {card}")
+    t0 = time.perf_counter()
+    report = dryrun_multichip(2)
+    ranks = report["ranks"]
+    print(f"mesh {report['mesh']}, backend {report['backend']}, ranks "
+          f"{[(r['rank'], r['coords'], r['device']) for r in ranks]}, dryrun "
+          f"{time.perf_counter() - t0:.1f} s")
+    _mesh_request_lines("large-v2 TP 2 3.84s beam5 cap32", [r["large-v2"] for r in ranks],
+                        MESH_PREDICTED["large-v2"])
+    _mesh_request_lines("medium TP 2 3.84s beam5 cap8", [r["medium"] for r in ranks],
+                        MESH_PREDICTED["medium"])
+    xtts = _mesh_request_lines("xtts v2 GPT TP 2 prefill + 20 greedy tokens",
+                               [r["xtts"]["full"] for r in ranks])
+    for rank, st in enumerate(xtts):
+        want = XTTS_INT8_PASS * (1 + st["chunk"])
+        print(f"xtts v2 rank {rank}: int8_matmul {st['launches']['int8_matmul']} against "
+              f"{XTTS_INT8_PASS} for the prefill + {XTTS_INT8_PASS} a token = {want}")
+        expect(f"xtts v2 rank {rank} int8_matmul", st["launches"]["int8_matmul"] == want)
+    ref = next(st for st in xtts if "tf_hidden_rel" in st)
+    print(f"xtts v2 teacher-forced latents ‖Δ‖/‖single‖ max "
+          f"{float(np.max(ref['tf_hidden_rel'])):.3e}")
+    for name in VOCAB_HEAD_CASES:
+        for rank, r in enumerate(ranks):
+            h = r["vocab_head"][name]
+            same = np.array_equal(h["tok"], h["ref_tok"])
+            print(f"vocab-sharded head {name} rank {rank} (D {h['d']}, V {h['v']}, "
+                  f"{h['v'] // 2} a shard, BK {h['bk']}, k {h['k']}): ids equal to the whole "
+                  f"head's {same}, values and lse max|Δ| {h['max_abs_err']:.3e} (tolerance "
+                  f"1e-5), fused_logits_topk launches {h['launches']['fused_logits_topk']}")
+            expect(f"vocab-sharded head {name}", same and h["max_abs_err"] <= 1e-5)
+    rows = check_shard_kernels(torch, dev)
+    return report, rows
+
+
 class PhaseClock:
     """Prints each phase's seconds as it ends."""
 
@@ -3811,6 +4045,8 @@ def main() -> int:
     clock.done(14)
     check_entry_points(torch, dev, counters)
     clock.done(15)
+    mesh_report, shard = check_mesh(torch, dev, smi)
+    clock.done(16)
 
     rows = [
         dict(name="layer_norm", source="wis_tpu_torch/csrc/layernorm.cu",
@@ -3835,6 +4071,22 @@ def main() -> int:
              replaces="wis_tpu/ops/flash.py:193", **hm),
         dict(name="fused_logits_topk(BK=20)", source="wis_tpu_torch/csrc/fused_logits.cu",
              replaces="wis_tpu/ops/fused_logits.py:48", **heads[(20, True, False)]),
+        # phase 16: a rank's shapes on the 2-way large-v2 request, the
+        # vocabulary-sharded head at large-v3's width
+        dict(name="layer_norm(TP 2 rank)", source="wis_tpu_torch/csrc/layernorm.cu",
+             replaces="wis_tpu/ops/layernorm.py:38", **shard["layer_norm"]),
+        dict(name="flash_attention_packed(TP 2 rank, 10 heads)",
+             source="wis_tpu_torch/csrc/flash_attention.cu",
+             replaces="wis_tpu/ops/flash.py:121", **shard["flash_attention_packed"]),
+        dict(name="int8_matmul(TP 2 rank, 1500x1280x640)",
+             source="wis_tpu_torch/csrc/int8_matmul.cu",
+             replaces="wis_tpu/ops/quant_pallas.py:41", **shard["int8_matmul 1500x1280x640"]),
+        dict(name="ancestry_attention(TP 2 rank, 10 heads)",
+             source="wis_tpu_torch/csrc/ancestry_attention.cu",
+             replaces="wis_tpu/ops/decode_attn.py:83", **shard["ancestry_attention"]),
+        dict(name="fused_logits_topk(vocab shard 25933)",
+             source="wis_tpu_torch/csrc/fused_logits.cu",
+             replaces="wis_tpu/ops/fused_logits.py:48", **shard["fused_logits_topk"]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3842,7 +4094,8 @@ def main() -> int:
     # main path); ancestry_attention the eager request, the grammar head the
     # timestamp request, head-major flash the WIS_NO_PACKED_FLASH request;
     # the GPT step the default XTTS stream, the GPT head the fused-head
-    # stream, the head at BK 20 the 180 s long-form request
+    # stream, the head at BK 20 the 180 s long-form request; the phase 16
+    # rows rank 0's 2-way large-v2 request and its vocabulary-sharded head
     fused = served["fused"]
     launches = [fused["layer_norm_cuda"], fused["flash_attention_packed"],
                 fused["fused_decode_step"], fused["fused_logits_topk"], step_n[0], head_n[1],
@@ -3850,6 +4103,10 @@ def main() -> int:
                 served["timestamps"]["fused_logits_topk(grammar)"],
                 switched_n["WIS_NO_PACKED_FLASH"]["flash_attention"],
                 served["long"]["fused_logits_topk"]]
+    tp0 = mesh_report["ranks"][0]["large-v2"]["launches"]
+    launches += [tp0["layer_norm_cuda"], tp0["flash_attention_packed"], tp0["int8_matmul"],
+                 tp0["ancestry_attention"],
+                 mesh_report["ranks"][0]["vocab_head"]["large-v3"]["launches"]["fused_logits_topk"]]
     for row, n in zip(rows, launches):
         row.update(route="cuda", launches=n)
     print(json.dumps({"kernels": [{key: row[key] for key in keys} for row in rows]}))

@@ -1304,3 +1304,66 @@ def test_eager_decoder_runs_the_new_kernels(dev):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
     assert float((got - want).norm() / want.norm()) <= STEP_REL_NORM
+
+
+def test_kernels_run_on_every_visible_card(dev):
+    """One process drives every visible card (a replica pool over all of
+    them, a rank that places a replica elsewhere): the kernels' opt-ins
+    above 48 KB of shared memory are set on each card, not only the first
+    one launched on. Each card's result equals the plain version's, at
+    shapes that take the large shared-memory configurations."""
+    from wis_tpu_torch.device import resolve_device
+    from wis_tpu_torch.ops.decode_attn import ancestry_attention, ancestry_attention_plain
+    from wis_tpu_torch.ops.flash import flash_attention_packed, flash_attention_packed_plain
+    from wis_tpu_torch.ops.fused_logits import fused_logits_topk, fused_logits_topk_plain
+    from wis_tpu_torch.ops.quant import int8_matmul, int8_matmul_plain, quantize_weight
+
+    for index in range(torch.cuda.device_count()):
+        card = resolve_device(f"cuda:{index}")
+        rng = np.random.default_rng(index)
+        x = _randn(rng, (1500, 1280), card, torch.bfloat16)
+        leaf = quantize_weight(_randn(rng, (1280, 640), card, torch.float32, scale=0.05))
+        got, want = int8_matmul(x, leaf["q"], leaf["s"]), int8_matmul_plain(x, leaf["q"], leaf["s"])
+        assert float((got.float() - want.float()).abs().max()) <= 2.0 ** -8 * float(
+            want.float().abs().max()) + 4 * float(_bf16_ulp(want).max())
+        q, k, v = (_randn(rng, (1, 1500, 640), card, torch.bfloat16) for _ in range(3))
+        got, want = flash_attention_packed(q, k, v, 10), flash_attention_packed_plain(q, k, v, 10)
+        assert float((got.float() - want.float()).norm() / want.float().norm()) <= 6e-3
+        qa = _randn(rng, (5, 10, 64), card, torch.bfloat16)
+        kc, vc = (_randn(rng, (5, 10, 64, 40), card, torch.bfloat16) for _ in range(2))
+        anc = torch.from_numpy(rng.integers(0, 5, (5, 40)).astype(np.int32)).to(card)
+        got, want = (ancestry_attention(qa, kc, vc, anc, 35),
+                     ancestry_attention_plain(qa, kc, vc, anc, 35))
+        assert float((got.float() - want.float()).abs().max()) <= 2.0 ** -8 * float(
+            want.float().abs().max()) + 4 * float(_bf16_ulp(want).max())
+        xs = _randn(rng, (5, 1280), card, torch.float32)
+        g, b = torch.ones(1280, device=card), torch.zeros(1280, device=card)
+        table = _randn(rng, (25933, 1280), card, torch.bfloat16)
+        sup = torch.zeros(25933, device=card)
+        got, want = (fused_logits_topk(xs, g, b, table, sup, k=6),
+                     fused_logits_topk_plain(xs, g, b, table, sup, k=6))
+        torch.cuda.synchronize(card)
+        assert float((got[0] - want[0]).abs().max()) <= 0.05
+        assert float((got[2] - want[2]).abs().max()) <= 0.05
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 640, 1280), (5, 2560, 1280), (1, 512, 1024),
+                                   (1, 2048, 1024)])
+def test_int8_matmul_f32_store_at_row_parallel_shards(dev, m, k, n):
+    """A row-parallel product's partial sums (``parallel/axis.row_parallel``
+    at 2-way large-v2 o_w / w2 and XTTS v2 proj_w / mlp_w2): bf16 x, the
+    kernel's f32 store, one launch; equal to the plain version's f32
+    result up to the order of the f32 sums."""
+    from wis_tpu_torch.ops.quant import int8_matmul, int8_matmul_plain, qmatmul, quantize_weight
+
+    rng = np.random.default_rng(m + k + n)
+    x = _randn(rng, (m, k), dev, torch.bfloat16)
+    leaf = quantize_weight(_randn(rng, (k, n), dev, torch.float32, scale=0.05))
+    before = int8_matmul.launches
+    got = qmatmul(x, leaf, out_dtype=torch.float32)
+    want = int8_matmul_plain(x, leaf["q"], leaf["s"], torch.float32)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    over = (got - want).abs() > 1e-5 * float(want.abs().max())
+    assert not bool(over.any()), f"{int(over.sum())} elements beyond tolerance"

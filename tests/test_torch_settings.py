@@ -27,8 +27,8 @@ def test_every_shared_default_equal():
                  "xtts_speaker_dir", "tts_stream_chunk_size", "name", "description",
                  "version"):
         assert name in SHARED
-    # the tensor-parallel mesh axes are not ported
-    assert "mesh_replica_axis" not in SHARED and "mesh_tensor_axis" not in SHARED
+    # the mesh axes (parallel/mesh.py), read by nothing in either package
+    assert "mesh_replica_axis" in SHARED and "mesh_tensor_axis" in SHARED
     assert set(SHARED) <= set(jax_settings.APISettings.model_fields)
 
 
@@ -60,6 +60,7 @@ ENVIRONMENTS = {
                     "BASIC_AUTH_USER": "u", "BASIC_AUTH_PASS": "p:w", "DETECT_LANGUAGE": "on",
                     "RTC_PORT_START": "20000", "RTC_PORT_END": " 20010 ", "XTTS_QUANT": "none"},
     "serving_json": {"CORS_ALLOWED_ORIGINS": '["*"]', "basic_auth_user": ""},
+    "mesh_axes": {"MESH_REPLICA_AXIS": "4", "mesh_tensor_axis": " 2 "},
 }
 
 
@@ -72,7 +73,8 @@ def test_environment_gives_the_same_values(clean_env, case):
 
 @pytest.mark.parametrize("key,value", [("BEAM_SIZE", "lots"), ("BEAM_SIZE", "3.5"),
                                        ("BATCH_WINDOW_S", "soon"),
-                                       ("BATCH_BUCKETS", '["1", ')])
+                                       ("BATCH_BUCKETS", '["1", '),
+                                       ("MESH_TENSOR_AXIS", "two")])
 def test_unparsable_value_refused_by_both(clean_env, key, value):
     """The JAX loader keeps a value it cannot coerce raw and its pydantic
     model refuses it; the port refuses it in the loader."""

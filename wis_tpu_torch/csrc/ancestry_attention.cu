@@ -436,11 +436,11 @@ int sm_count() {
   return n;
 }
 
-// The opt-in above 48 KB, once.
+// The opt-in above 48 KB, once per device.
 cudaError_t allow_smem() {
-  static const cudaError_t e = cudaFuncSetAttribute(
-      ancestry_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBudget);
-  return e;
+  static unsigned long long opted = 0;
+  return wis::set_attribute(ancestry_attention_kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize, kBudget, &opted);
 }
 
 // Clusters of `splits` blocks of `smem` bytes the card holds at once (the

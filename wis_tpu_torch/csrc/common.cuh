@@ -267,6 +267,25 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                : "memory");
 }
 
+// ---- per-device kernel attributes ------------------------------------------
+
+// A kernel attribute (the opt-in above 48 KB of dynamic shared memory, a
+// non-portable cluster size) holds on the current device only: a process
+// that drives several cards sets it on each. `done` keeps one bit per
+// device it was set on (devices 0-63); setting it twice is harmless.
+template <typename Kernel>
+inline cudaError_t set_attribute(Kernel kernel, cudaFuncAttribute what, int value,
+                                 unsigned long long* done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (*done & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, what, value);
+  if (e == cudaSuccess) *done |= bit;
+  return e;
+}
+
 // ---- thread-block clusters -----------------------------------------------
 
 constexpr int kMaxSplits = 8;  // blocks of one cluster (the portable size)

@@ -83,17 +83,14 @@ __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) 
 size_t align256(size_t n) { return (n + 255) & ~static_cast<size_t>(255); }
 
 // Lets `kernel` take up to kMaxSmem of shared memory (static and dynamic
-// together; above 48 KB needs the opt-in). Once per kernel: each caller
-// keeps its own flag.
+// together; above 48 KB needs the opt-in). Once per kernel and device:
+// each caller keeps its own device mask.
 constexpr int kMaxSmem = 200 * 1024;
 
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, bool* done) {
-  if (*done) return cudaSuccess;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  *done = e == cudaSuccess;
-  return e;
+cudaError_t allow_smem(Kernel kernel, unsigned long long* done) {
+  return wis::set_attribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem,
+                            done);
 }
 
 // ---- the splits' merge through distributed shared memory -------------------
@@ -422,7 +419,7 @@ __global__ void __launch_bounds__(kThreads, 2) int8_product_kernel(ProductArgs p
 
 template <int G, int MODE, bool LN>
 cudaError_t launch_product_g(const ProductArgs& p, int chunks, int splits, cudaStream_t stream) {
-  static bool opted = false;
+  static unsigned long long opted = 0;
   cudaError_t e = allow_smem(int8_product_kernel<G, MODE, LN>, &opted);
   if (e != cudaSuccess) return e;
   return launch_clustered(int8_product_kernel<G, MODE, LN>, dim3(chunks * p.N / kStrip, splits),
@@ -748,7 +745,7 @@ cudaError_t launch_self(SelfArgs a, int H, cudaStream_t st) {
   const int want = std::max(1, std::min({kMaxSplits, cdiv(2 * sm_count(), H), a.t_cache}));
   a.tt = std::min(kSelfCols / a.bk, cdiv(a.t_cache, want));
   const int splits = std::min(want, cdiv(a.t_cache, a.tt));
-  static bool opted = false;
+  static unsigned long long opted = 0;
   cudaError_t e = allow_smem(self_attention_kernel, &opted);
   if (e != cudaSuccess) return e;
   return launch_clustered(self_attention_kernel, dim3(H, splits), kThreads, self_smem(a.bk), 1,

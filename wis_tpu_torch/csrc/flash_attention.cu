@@ -305,13 +305,10 @@ int launch_wgmma(const Launch& a) {
       !wis::encode_map(&vm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a.v, dims, strides, kvbox,
                        CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorNotSupported);
-  static bool attr = false;  // the opt-in above 48 KB, once per instance
-  if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_wgmma_kernel<DP, WGS>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attr = true;
-  }
+  static unsigned long long opted = 0;  // the opt-in above 48 KB, per instance and device
+  const cudaError_t e = wis::set_attribute(
+      flash_wgmma_kernel<DP, WGS>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem, &opted);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((a.T + 64 * WGS - 1) / (64 * WGS), a.H, a.B);
   flash_wgmma_kernel<DP, WGS><<<grid, L::kThreads, L::kSmem, a.stream>>>(
       qm, km, vm, a.o, a.T, a.H, a.dh, a.packed ? 1 : 0, a.row_stride, a.head_stride,

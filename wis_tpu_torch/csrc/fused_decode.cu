@@ -366,7 +366,7 @@ __global__ void __launch_bounds__(kThreads) cross_attention_kernel(CrossArgs a) 
 // memory it may need, once each)
 template <bool INT8, int G>
 cudaError_t cross_instance(void (**k)(CrossArgs)) {
-  static bool opted = false;
+  static unsigned long long opted = 0;
   *k = cross_attention_kernel<INT8, G>;
   return allow_smem(*k, &opted);
 }

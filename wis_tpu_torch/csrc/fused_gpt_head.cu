@@ -513,15 +513,16 @@ extern "C" int wis_fused_gpt_head(const void* x, const void* ln4, const void* he
   int P = 1;
   while (P < VP) P <<= 1;
   const size_t smem = head_smem(D, VP, P);
-  static bool opted = false;
-  if (!opted) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gpt_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(head_smem(4096, kMaxVp, kMaxVp)));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    opted = true;
-  }
+  static unsigned long long opted = 0, wide = 0;  // per device
+  cudaError_t set = wis::set_attribute(gpt_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(head_smem(4096, kMaxVp, kMaxVp)), &opted);
+  if (set != cudaSuccess) return static_cast<int>(set);
   const int cluster = cluster_size(head_smem(4096, kMaxVp, kMaxVp));
+  if (cluster > 8) {  // cluster_size allowed it on the first device; each card needs it
+    set = wis::set_attribute(gpt_head_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1,
+                             &wide);
+    if (set != cudaSuccess) return static_cast<int>(set);
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster);
   cfg.blockDim = dim3(kThreads);

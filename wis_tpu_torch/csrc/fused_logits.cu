@@ -644,13 +644,15 @@ __global__ void __launch_bounds__(kThreads, 1) logits_topk_kernel(Args a) {
 
 template <bool INT8, int G>
 cudaError_t launch_g(const Args& a, int nb, size_t smem, cudaStream_t st) {
-  static size_t opted = 0;  // the opt-in above 48 KB, raised as needed
-  if (smem > opted) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        logits_topk_kernel<INT8, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+  static size_t opted[64] = {};  // the opt-in above 48 KB, raised as needed, per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (smem > opted[dev & 63]) {
+    e = cudaFuncSetAttribute(logits_topk_kernel<INT8, G>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
-    opted = smem;
+    opted[dev & 63] = smem;
   }
   logits_topk_kernel<INT8, G><<<nb, kThreads, smem, st>>>(a);
   return cudaGetLastError();

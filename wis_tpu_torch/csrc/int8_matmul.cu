@@ -279,13 +279,10 @@ int launch(const void* x, const void* q, const float* s, void* y, float* part, i
       !wis::encode_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q, qdims, qstride, qbox,
                        CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorNotSupported);
-  static bool attr = false;  // the opt-in above 48 KB, once per instance
-  if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        int8_matmul_kernel<NM>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attr = true;
-  }
+  static unsigned long long opted = 0;  // the opt-in above 48 KB, per instance and device
+  const cudaError_t e = wis::set_attribute(
+      int8_matmul_kernel<NM>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem, &opted);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int steps = K / kBK, per = (steps + splits - 1) / splits;
   const dim3 grid((N + kBN - 1) / kBN, (M + NM - 1) / NM, splits);
   int8_matmul_kernel<NM><<<grid, kThreads, T::kSmem, st>>>(

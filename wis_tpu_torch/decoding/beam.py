@@ -18,6 +18,14 @@ as the JAX package's fused branch does.
 ``jax.lax.top_k`` breaks ties toward the lower index and ``torch.topk``
 promises no order, so every top-k here is a stable descending sort.
 
+``tp`` (this rank's ``parallel/axis.ModelAxis``, with ``params`` its
+shard) runs the eager decoder tensor-parallel, as the JAX package's
+GSPMD path runs its eager (``fused=False``) branch: the fused step keeps
+whole heads of every layer in one launch, with no place for a per-layer
+all-reduce, so ``fused=True`` with ``tp`` is refused. The logits reach
+every rank with the same bits, so every rank takes the same host
+decisions.
+
 ``with_timestamps=True`` applies whisper's timestamp grammar as the JAX
 package does: the first token must be a timestamp of at most
 ``MAX_INITIAL_TS_INDEX`` steps (1 s), timestamps come in non-decreasing
@@ -42,6 +50,7 @@ from wis_tpu_torch.models.whisper.tokenizer import EOT, layout_for_vocab
 from wis_tpu_torch.ops.attention import NEG_INF
 from wis_tpu_torch.ops.fused_decode import build_fused_decode_step, quantize_xa_columns
 from wis_tpu_torch.ops.fused_logits import apply_grammar, build_fused_logits_topk
+from wis_tpu_torch.parallel.axis import ModelAxis
 
 #: HF beam search's "effectively -inf" gating constant
 GATE = -1.0e9
@@ -85,6 +94,7 @@ def build_generate_xa(
     xa_int8: bool = False,
     renorm_suppressed: bool = True,
     eot_id: Optional[int] = None,
+    tp: Optional[ModelAxis] = None,
 ):
     """Return generate(params, xa_kv, prompt, token_cap) → GenerateResult.
 
@@ -103,7 +113,13 @@ def build_generate_xa(
     (L, H, Dh, B·S_pad) with each window zero-padded — and then the fused
     head, int8 when the tree carries ``tok_emb_q``. xa_int8 (fused only)
     quantizes the flattened cross-KV per column once before the loop
-    (``quantize_xa_columns``)."""
+    (``quantize_xa_columns``).
+
+    tp: this rank's model axis; ``params`` and ``xa_kv`` are its shard
+    (eager only: ``fused=True`` with ``tp`` raises)."""
+    if fused and tp is not None:
+        raise ValueError("the fused decode step runs on one device: tensor parallelism "
+                         "(tp) takes the eager decoder (fused=False)")
     ts_base = layout_for_vocab(cfg.n_vocab).timestamp_base
     eot = EOT if eot_id is None else int(eot_id)
     K, B = beam_size, batch
@@ -149,10 +165,10 @@ def build_generate_xa(
         cap_eff = max(min(max_new_tokens, int(token_cap)), 1)
 
         # ---- prefill on batch B ---- #
-        cache0 = DecoderCache.zeros(cfg, B, cache_len, dtype, device)
+        cache0 = DecoderCache.zeros(cfg, B, cache_len, dtype, device, tp)
         prompt = prompt.to(device=device, dtype=torch.long)
         prompt_b = prompt.expand(B, prompt_len) if prompt.dim() == 1 else prompt
-        logits, cache0 = prefill(params, prompt_b, cache0, xa_kv, cfg)
+        logits, cache0 = prefill(params, prompt_b, cache0, xa_kv, cfg, tp)
         first_raw = logits[:, -1]  # (B, V) f32
         first_masked = first_raw + begin_sup
         first_lse = torch.logsumexp(
@@ -245,7 +261,7 @@ def build_generate_xa(
             anc = anc.clone()
             anc[:, :, cache.pos] = beam_rows
             logits, cache = decode_step(
-                params, tokens.reshape(BK), cache, xa_kv, cfg, anc=anc
+                params, tokens.reshape(BK), cache, xa_kv, cfg, anc=anc, tp=tp
             )  # (BK, V) f32
             masked = logits + sup
             if ts is not None:

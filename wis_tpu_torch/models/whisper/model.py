@@ -26,6 +26,15 @@ takes the plain formulas, as the JAX package does off TPU. The eager
 decoder's beam self-attention runs ``ops/decode_attn.ancestry_attention``
 (the kernel on a CUDA device, its plain version on the CPU), and every
 int8 product the ``ops/quant.int8_matmul`` kernel (through ``qmatmul``).
+
+Tensor parallelism: ``encode``, ``cross_kv``, ``DecoderCache.zeros``,
+``prefill`` and ``decode_step`` take ``tp``, this rank's model axis
+(``parallel/axis.ModelAxis``), with ``params`` this rank's shard
+(``parallel/mesh.shard_params``). Heads are counted from the local
+width; each row-parallel product (o_w, w2) is all-reduced in f32 before
+its rounding and bias (``parallel/axis.row_parallel``); the conv stem
+all-gathers its two column-parallel outputs. ``tp=None`` is the
+single-device path, bit for bit.
 """
 
 from __future__ import annotations
@@ -43,7 +52,8 @@ from wis_tpu_torch.ops.flash import flash_attention, flash_attention_packed
 from wis_tpu_torch.ops.gelu import gelu
 from wis_tpu_torch.ops.layernorm import layer_norm_cuda
 from wis_tpu_torch.ops.layernorm import layer_norm_plain as layer_norm
-from wis_tpu_torch.ops.quant import matmul_f32, qmatmul
+from wis_tpu_torch.ops.quant import matmul_f32
+from wis_tpu_torch.parallel.axis import ModelAxis, local_heads, row_parallel
 
 
 def _layer(tree: dict, li: int) -> dict:
@@ -53,10 +63,12 @@ def _layer(tree: dict, li: int) -> dict:
     }
 
 
-def _linear(x, w, b=None):
+def _linear(x, w, b=None, tp: Optional[ModelAxis] = None):
     # double rounding as in the JAX package: the matmul rounds to x.dtype,
-    # then the f32 bias add rounds again
-    y = qmatmul(x, w)
+    # then the f32 bias add rounds again. A row-parallel product (``tp``)
+    # rounds after the f32 sum across the ranks, and the bias (whole on
+    # every rank) is added once, after that.
+    y = row_parallel(x, w, tp)
     if b is not None:
         y = (y.float() + b.float()).to(x.dtype)
     return y
@@ -77,28 +89,29 @@ def attention_route(device_type: str, t: int, d: int, n_heads: int) -> str:
     return "head_major" if dh % 8 == 0 else "plain"
 
 
-def _attn_block(x, blk, n_heads):
-    """Encoder self-attention for one layer. Long sequences on the card
-    run a flash kernel, so the (H, T, T) scores never reach device memory:
-    the packed one keeps q/k/v (B, T, D) end to end, the head-major one
-    takes them split into heads, as the JAX package's does."""
+def _attn_block(x, blk, n_heads, tp=None):
+    """Encoder self-attention for one layer over this rank's n_heads.
+    Long sequences on the card run a flash kernel, so the (H, T, T) scores
+    never reach device memory: the packed one keeps q/k/v (B, T, D) end to
+    end, the head-major one takes them split into heads, as the JAX
+    package's does."""
     q = _linear(x, blk["q_w"], blk["q_b"])
     k = _linear(x, blk["k_w"])
     v = _linear(x, blk["v_w"], blk["v_b"])
     route = attention_route(x.device.type, x.shape[-2], x.shape[-1], n_heads)
     if route == "packed":
-        return _linear(flash_attention_packed(q, k, v, n_heads), blk["o_w"], blk["o_b"])
+        return _linear(flash_attention_packed(q, k, v, n_heads), blk["o_w"], blk["o_b"], tp)
     q, k, v = (qkv_heads(t, n_heads) for t in (q, k, v))
     if route == "head_major":
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     else:
         out = mha(q, k, v)
-    return _linear(merge_heads(out), blk["o_w"], blk["o_b"])
+    return _linear(merge_heads(out), blk["o_w"], blk["o_b"], tp)
 
 
-def _mlp(x, blk):
+def _mlp(x, blk, tp=None):
     h = gelu(_linear(x, blk["w1"], blk["b1"]))
-    return _linear(h, blk["w2"], blk["b2"])
+    return _linear(h, blk["w2"], blk["b2"], tp)
 
 
 def layer_norm_route(device_type: str, d: int) -> str:
@@ -120,30 +133,38 @@ def _enc_ln(x, g, b):
 # --------------------------------------------------------------------------- #
 # Encoder
 # --------------------------------------------------------------------------- #
-def encode(params: dict, mel: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
-    """mel (B, n_mels, 3000) → encoder states (B, 1500, D)."""
+def encode(params: dict, mel: torch.Tensor, cfg: WhisperConfig,
+           tp: Optional[ModelAxis] = None) -> torch.Tensor:
+    """mel (B, n_mels, 3000) → encoder states (B, 1500, D). Under tensor
+    parallelism (``tp``, this rank's model axis; ``params`` its shard) the
+    states come out whole on every rank."""
     enc = params["encoder"]
-    x = conv_stem(enc, mel)
+    n_heads = local_heads(cfg.n_audio_head, tp)
+    x = conv_stem(enc, mel, tp)
     for li in range(cfg.n_audio_layer):
         blk = _layer(enc["blocks"], li)
         x = x + _attn_block(
             _enc_ln(x, blk["attn_ln"]["g"], blk["attn_ln"]["b"]),
             blk["attn"],
-            cfg.n_audio_head,
+            n_heads,
+            tp,
         )
-        x = x + _mlp(_enc_ln(x, blk["mlp_ln"]["g"], blk["mlp_ln"]["b"]), blk["mlp"])
+        x = x + _mlp(_enc_ln(x, blk["mlp_ln"]["g"], blk["mlp_ln"]["b"]), blk["mlp"], tp)
     return _enc_ln(x, enc["ln_post"]["g"], enc["ln_post"]["b"])
 
 
-def cross_kv(params: dict, xa: torch.Tensor, cfg: WhisperConfig):
+def cross_kv(params: dict, xa: torch.Tensor, cfg: WhisperConfig,
+             tp: Optional[ModelAxis] = None):
     """Per-layer cross-attention K/V from encoder states: xa (B, 1500, D)
-    → (k, v) each (L, B, H, Dh, 1500), time-minor."""
+    → (k, v) each (L, B, H, Dh, 1500), time-minor (H this rank's heads
+    under ``tp``)."""
     dec = params["decoder"]
+    n_heads = local_heads(cfg.n_text_head, tp)
     ks, vs = [], []
     for li in range(cfg.n_text_layer):
         cross = _layer(dec["blocks"], li)["cross"]
-        k = qkv_heads(_linear(xa, cross["k_w"]), cfg.n_text_head)
-        v = qkv_heads(_linear(xa, cross["v_w"], cross["v_b"]), cfg.n_text_head)
+        k = qkv_heads(_linear(xa, cross["k_w"]), n_heads)
+        v = qkv_heads(_linear(xa, cross["v_w"], cross["v_b"]), n_heads)
         ks.append(k.transpose(-1, -2))
         vs.append(v.transpose(-1, -2))
     return torch.stack(ks), torch.stack(vs)
@@ -154,7 +175,8 @@ def cross_kv(params: dict, xa: torch.Tensor, cfg: WhisperConfig):
 # --------------------------------------------------------------------------- #
 class DecoderCache(NamedTuple):
     """Preallocated self-attention KV cache: k, v (L, B, H, Dh, T_max),
-    time-minor; pos — number of valid positions."""
+    time-minor (H this rank's heads under ``tp``); pos — number of valid
+    positions."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -168,11 +190,12 @@ class DecoderCache(NamedTuple):
         max_len: int,
         dtype: torch.dtype,
         device: torch.device,
+        tp: Optional[ModelAxis] = None,
     ) -> "DecoderCache":
         shape = (
             cfg.n_text_layer,
             batch,
-            cfg.n_text_head,
+            local_heads(cfg.n_text_head, tp),
             cfg.n_text_state // cfg.n_text_head,
             max_len,
         )
@@ -191,10 +214,12 @@ def _decoder_pass(
     xa_kv: Tuple[torch.Tensor, torch.Tensor],
     cfg: WhisperConfig,
     anc: Optional[torch.Tensor] = None,  # (Bq, K, T_max) ancestry, or None
+    tp: Optional[ModelAxis] = None,
 ) -> Tuple[torch.Tensor, DecoderCache]:
     """Run T tokens through the decoder, writing self-attention K/V into
     the cache tensors in place at [pos_offset, pos_offset + T). Returns
-    (logits (B, T, V) f32, cache advanced by T)."""
+    (logits (B, T, V) f32, cache advanced by T); under ``tp`` the logits
+    are whole (the same bits) on every rank."""
     dec = params["decoder"]
     b, t = tokens.shape
     max_len = cache.k.shape[4]
@@ -211,8 +236,8 @@ def _decoder_pass(
 
     xa_k, xa_v = xa_kv  # (L, Bx, H, Dh, S)
     group = b // xa_k.shape[1]
-    n_head = cfg.n_text_head
-    dh = cfg.n_text_state // n_head
+    n_head = local_heads(cfg.n_text_head, tp)
+    dh = cfg.n_text_state // cfg.n_text_head
     scale = dh ** -0.5
 
     def _self_attn(q, ck, cv):
@@ -257,6 +282,7 @@ def _decoder_pass(
             merge_heads(attn_fn(q, cache.k[li], cache.v[li])),
             blk["attn"]["o_w"],
             blk["attn"]["o_b"],
+            tp,
         )
         h = layer_norm(x, blk["cross_ln"]["g"], blk["cross_ln"]["b"])
         qc = qkv_heads(_linear(h, blk["cross"]["q_w"], blk["cross"]["q_b"]), n_head)
@@ -264,8 +290,9 @@ def _decoder_pass(
             merge_heads(_cross_attn(qc, xa_k[li], xa_v[li])),
             blk["cross"]["o_w"],
             blk["cross"]["o_b"],
+            tp,
         )
-        x = x + _mlp(layer_norm(x, blk["mlp_ln"]["g"], blk["mlp_ln"]["b"]), blk["mlp"])
+        x = x + _mlp(layer_norm(x, blk["mlp_ln"]["g"], blk["mlp_ln"]["b"]), blk["mlp"], tp)
 
     x = layer_norm(x, dec["ln"]["g"], dec["ln"]["b"])
     if "tok_emb_q" in dec:
@@ -285,9 +312,10 @@ def prefill(
     cache: DecoderCache,
     xa_kv,
     cfg: WhisperConfig,
+    tp: Optional[ModelAxis] = None,
 ) -> Tuple[torch.Tensor, DecoderCache]:
     """Run the prompt through the decoder → (logits (B, P, V) f32, cache)."""
-    return _decoder_pass(params, prompt, 0, cache, xa_kv, cfg)
+    return _decoder_pass(params, prompt, 0, cache, xa_kv, cfg, tp=tp)
 
 
 def decode_step(
@@ -297,11 +325,12 @@ def decode_step(
     xa_kv,
     cfg: WhisperConfig,
     anc: Optional[torch.Tensor] = None,  # optional (Bq, K, T_max) ancestry
+    tp: Optional[ModelAxis] = None,
 ) -> Tuple[torch.Tensor, DecoderCache]:
     """One autoregressive step → (logits (B, V) f32, cache). With ``anc``,
     self-attention resolves each logical beam's history through the
     ancestry map instead of assuming contiguous rows."""
     logits, cache = _decoder_pass(
-        params, tokens[:, None], cache.pos, cache, xa_kv, cfg, anc=anc
+        params, tokens[:, None], cache.pos, cache, xa_kv, cfg, anc=anc, tp=tp
     )
     return logits[:, 0], cache

@@ -29,12 +29,21 @@ Differences from the JAX functions, none of which changes a result:
   syncs per token. A chunk keeps stepping after ``done`` (the tokens are
   forced to stop), as in the JAX scan.
 - Caches are updated in place (JAX donates them).
+
+Tensor parallelism: ``gpt_pass``, ``GPTCache.zeros``, ``build_prefill``
+and ``run_decode_chunk`` take ``tp``, this rank's model axis
+(``parallel/axis.ModelAxis``), with ``params`` this rank's shard
+(``parallel/mesh.xtts_gpt_param_specs``): heads are counted from the
+local width, proj_w and mlp_w2 are all-reduced in f32 before their
+rounding and bias, and the cache holds this rank's heads
+(``xtts_cache_spec``). The fused step keeps whole heads of every layer in
+one launch, so ``run_decode_chunk_fused`` refuses ``tp``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,6 +51,7 @@ import torch.nn.functional as F
 
 from wis_tpu_torch.ops.gelu import gelu_tanh
 from wis_tpu_torch.ops.quant import qmatmul
+from wis_tpu_torch.parallel.axis import ModelAxis, local_heads, row_parallel
 
 NEG = -1e30
 
@@ -82,8 +92,9 @@ class GPTCache(NamedTuple):
 
     @classmethod
     def zeros(cls, cfg: GPTConfig, batch: int, max_len: int,
-              dtype=torch.bfloat16, device="cpu"):
-        shape = (cfg.n_layer, batch, cfg.n_head, max_len, cfg.d_model // cfg.n_head)
+              dtype=torch.bfloat16, device="cpu", tp: Optional[ModelAxis] = None):
+        shape = (cfg.n_layer, batch, local_heads(cfg.n_head, tp), max_len,
+                 cfg.d_model // cfg.n_head)
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device), 0)
 
@@ -95,13 +106,13 @@ def _layer(leaf, l: int):
 
 
 def gpt_pass(params: Dict, x: torch.Tensor, pos_offset: int, cache: GPTCache,
-             cfg: GPTConfig):
+             cfg: GPTConfig, tp: Optional[ModelAxis] = None):
     """Run T embedded positions (B, T, D) through the decoder, writing their
     K/V into the cache in place at pos_offset. → (final hidden states
     (B, T, D) after both final LayerNorms, the cache)."""
     b, t, d = x.shape
-    h = cfg.n_head
-    dh = d // h
+    h = local_heads(cfg.n_head, tp)
+    dh = d // cfg.n_head
     max_len = cache.k.shape[3]
     dtype = cache.k.dtype
     key_pos = torch.arange(max_len, device=x.device)[None, :]
@@ -123,11 +134,11 @@ def gpt_pass(params: Dict, x: torch.Tensor, pos_offset: int, cache: GPTCache,
         scores = (q.float() @ ck.float().transpose(-1, -2)) * (dh ** -0.5)
         scores = torch.where(mask, scores, NEG)
         w = torch.softmax(scores, dim=-1).to(cv.dtype)
-        ctx = (w @ cv).transpose(1, 2).reshape(b, t, d)
-        x = x + (qmatmul(ctx, blk["proj_w"]) + blk["proj_b"]).to(x.dtype)
+        ctx = (w @ cv).transpose(1, 2).reshape(b, t, h * dh)
+        x = x + (row_parallel(ctx, blk["proj_w"], tp) + blk["proj_b"]).to(x.dtype)
         hdn = _ln(x, blk["ln2_g"], blk["ln2_b"])
         ff = gelu_tanh(qmatmul(hdn, blk["mlp_w1"]) + blk["mlp_b1"])
-        x = x + (qmatmul(ff, blk["mlp_w2"]) + blk["mlp_b2"]).to(x.dtype)
+        x = x + (row_parallel(ff, blk["mlp_w2"], tp) + blk["mlp_b2"]).to(x.dtype)
     # Coqui XTTS applies TWO final LayerNorms: GPT2Model's ln_f and then
     # the model's own final_norm
     x = _ln(x, params["gpt_lnf_g"], params["gpt_lnf_b"])
@@ -148,15 +159,16 @@ def embed_prompt(params: Dict, cond_latent: torch.Tensor, text_tokens: torch.Ten
     return torch.cat([cond_latent.to(dtype), text, start], dim=1)
 
 
-def build_prefill(cfg: GPTConfig, batch: int, cond_len: int, text_len: int, max_len: int):
+def build_prefill(cfg: GPTConfig, batch: int, cond_len: int, text_len: int, max_len: int,
+                  tp: Optional[ModelAxis] = None):
     """The prefix pass: embeds conditioning + text, fills a fresh cache,
     returns (last hidden state, cache)."""
 
     def prefill(params, cond_latent, text_tokens):
         dtype = params["text_emb"].dtype
-        cache = GPTCache.zeros(cfg, batch, max_len, dtype, cond_latent.device)
+        cache = GPTCache.zeros(cfg, batch, max_len, dtype, cond_latent.device, tp)
         x = embed_prompt(params, cond_latent, text_tokens, cfg)
-        hidden, cache = gpt_pass(params, x, 0, cache, cfg)
+        hidden, cache = gpt_pass(params, x, 0, cache, cfg, tp)
         return hidden[:, -1], cache._replace(pos=cond_len + text_len + 1)
 
     return prefill
@@ -226,8 +238,10 @@ def _finish_step(nxt, done, history, hist_len: int, cfg: GPTConfig):
 
 def run_decode_chunk(params, last_token, cache: GPTCache, history, hist_len: int, gumbel,
                      temperature, top_k, top_p, repetition_penalty, do_sample: bool,
-                     min_tokens: int = 0, *, cfg: GPTConfig, chunk: int, batch: int):
-    """Emit ``chunk`` audio tokens through ``gpt_pass`` (the eager path).
+                     min_tokens: int = 0, *, cfg: GPTConfig, chunk: int, batch: int,
+                     tp: Optional[ModelAxis] = None):
+    """Emit ``chunk`` audio tokens through ``gpt_pass`` (the eager path;
+    tensor-parallel under ``tp``).
 
     last_token (B,) int64 (START_AUDIO for the first chunk); history
     (B, max_audio) int64, written in place; gumbel (chunk, B, V) f32.
@@ -238,7 +252,7 @@ def run_decode_chunk(params, last_token, cache: GPTCache, history, hist_len: int
     tokens, latents = [], []
     for i in range(chunk):
         x = _audio_embed(params, tok, hist_len + 1)[:, None, :]  # start token = pos 0
-        hidden, cache = gpt_pass(params, x, cache.pos, cache, cfg)
+        hidden, cache = gpt_pass(params, x, cache.pos, cache, cfg, tp)
         cache = cache._replace(pos=cache.pos + 1)
         logits = (hidden[:, 0] @ params["head_w"] + params["head_b"]).float()
         logits = _stop_floor(logits, cfg, hist_len < min_tokens)
@@ -272,7 +286,7 @@ def run_decode_chunk_fused(params, packed, step_fn, last_token, kc, vc, pos: int
                            hist_len: int, gumbel, temperature, top_k, top_p,
                            repetition_penalty, do_sample: bool, min_tokens: int = 0,
                            head_packed=None, *, cfg: GPTConfig, chunk: int, batch: int,
-                           head_fn=None):
+                           head_fn=None, tp: Optional[ModelAxis] = None):
     """``run_decode_chunk`` with the layer loop replaced by the fused step
     (``step_fn``: all layers per call, the flat caches (L, D, B·t_pad)
     updated in place at column pos·B + row). Same sampling staging, so given
@@ -283,7 +297,13 @@ def run_decode_chunk_fused(params, packed, step_fn, last_token, kc, vc, pos: int
     the draw — is the fused head; the penalty then reads a (1, V_pad)
     hit-mask set from ``history`` at chunk entry and updated per token,
     which masks exactly as ``_mask_logits``' one-hot does.
-    → (tokens, latents, kc, vc, pos, history, hist_len, done)."""
+    → (tokens, latents, kc, vc, pos, history, hist_len, done).
+
+    ``tp`` is refused: the fused step runs every layer in one launch on
+    one device (the eager ``run_decode_chunk`` takes tensor parallelism)."""
+    if tp is not None:
+        raise ValueError("the fused GPT step runs on one device: tensor parallelism (tp) "
+                         "takes the eager run_decode_chunk")
     dtype = params["text_emb"].dtype
     dev = last_token.device
     bkt = kc.shape[-1]

@@ -25,7 +25,7 @@ weight), then the matmul accumulates in f32 and rounds to x's dtype.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -74,12 +74,13 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y.reshape(*lead, b.shape[-1])
 
 
-def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The W8A16 product in plain PyTorch: ``(x @ q) * s`` in f32 with x
-    rounded to bf16 first, the result in x's dtype. x (M, K), q (K, N)
-    int8, s (1, N) or (N,) f32."""
+    rounded to bf16 first, the result in ``out_dtype`` (default x's
+    dtype). x (M, K), q (K, N) int8, s (1, N) or (N,) f32."""
     y = x.to(torch.bfloat16).float() @ q.float()
-    return (y * s.float().reshape(1, -1)).to(x.dtype)
+    return (y * s.float().reshape(1, -1)).to(out_dtype or x.dtype)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -107,14 +108,18 @@ def _split_counters(device: torch.device, n: int) -> torch.Tensor:
     return have
 
 
-def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """y (M, N) = ``int8_matmul_plain(x, q, s)``: CUDA tensors run
-    ``csrc/int8_matmul.cu`` (x of any float dtype, rounded to bf16 as the
-    plain version does; K a multiple of 128 and N of 64), one launch per
-    call (at most 64 rows, K split over the SMs, the splits summed in the
-    same launch); CPU tensors run the plain version."""
+def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """y (M, N) = ``int8_matmul_plain(x, q, s, out_dtype)``: CUDA tensors
+    run ``csrc/int8_matmul.cu`` (x of any float dtype, rounded to bf16 as
+    the plain version does; K a multiple of 128 and N of 64), one launch
+    per call (at most 64 rows, K split over the SMs, the splits summed in
+    the same launch); CPU tensors run the plain version. The kernel stores
+    bf16 for a bf16 ``out_dtype`` (default x's dtype) and f32 for any
+    other, which is then cast."""
+    out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
-        return int8_matmul_plain(x, q, s)
+        return int8_matmul_plain(x, q, s, out_dtype)
     _check(x.device.type == "cuda", f"unsupported device {x.device}")
     m, k = x.shape
     n = q.shape[-1]
@@ -123,11 +128,10 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tens
            f"{q.dtype} {tuple(q.shape)}")
     _check(s.dtype == torch.float32 and s.numel() == n, f"s must be f32 with {n} scales")
     _check(k % 128 == 0 and n % 64 == 0, f"K={k} must be a multiple of 128, N={n} of 64")
-    # the kernel stores bf16 for bf16 activations and f32 for any other
-    out_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
-    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    store = torch.bfloat16 if out_dtype == torch.bfloat16 else torch.float32
+    y = torch.empty((m, n), dtype=store, device=x.device)
     if m == 0:
-        return y.to(x.dtype)
+        return y.to(out_dtype)
     xb = x.to(torch.bfloat16)
     for t in (xb, q, s):
         _check(t.device == x.device, f"every tensor must be on {x.device}")
@@ -141,11 +145,11 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tens
     with torch.cuda.device(x.device):
         rc = lib.wis_int8_matmul(xb.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
                                  part.data_ptr(), sem.data_ptr(), m, k, n, splits,
-                                 int(out_dtype == torch.float32),
+                                 int(store == torch.float32),
                                  torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "int8_matmul")
     int8_matmul.launches += 1
-    return y.to(x.dtype)
+    return y.to(out_dtype)
 
 
 int8_matmul.launches = 0
@@ -156,12 +160,15 @@ def _use_kernel(x: torch.Tensor, q: torch.Tensor) -> bool:
     return x.is_cuda and q.dim() == 2 and q.shape[0] % 128 == 0 and q.shape[1] % 128 == 0
 
 
-def qmatmul(x: torch.Tensor, w: Weight) -> torch.Tensor:
-    """x (..., K) @ w (K, N) with transparent int8 dequant; output dtype
-    follows x. On the card an int8 leaf that meets the gate runs the
-    ``int8_matmul`` kernel."""
+def qmatmul(x: torch.Tensor, w: Weight,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x (..., K) @ w (K, N) with transparent int8 dequant; the output in
+    ``out_dtype``, by default x's (f32: the sum before any rounding to
+    x's dtype, as a row-parallel product's partials are reduced). On the
+    card an int8 leaf that meets the gate runs the ``int8_matmul``
+    kernel."""
     if is_quantized(w) and _use_kernel(x, w["q"]):
-        y = int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w["q"], w["s"])
+        y = int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w["q"], w["s"], out_dtype)
         return y.reshape(*x.shape[:-1], y.shape[-1])
     if is_quantized(w):
         # the scale rounds to bf16 before the multiply; the product (exact
@@ -169,7 +176,9 @@ def qmatmul(x: torch.Tensor, w: Weight) -> torch.Tensor:
         # matmul — for f32 activations XLA keeps it f32 under jit
         s = w["s"].to(torch.bfloat16)
         w = w["q"].to(torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32) * s
-    return torch.matmul(x, w.to(x.dtype))
+    if out_dtype == torch.float32:
+        return matmul_f32(x, w.to(x.dtype))
+    return torch.matmul(x, w.to(x.dtype)).to(out_dtype or x.dtype)
 
 
 #: whisper weight-leaf names eligible for int8 (matmul projections only)

@@ -130,6 +130,10 @@ class APISettings:
     #: package's default)
     hbm_budget_bytes: int = 16 * 1024**3
     warmup_iterations: int = 1
+    #: mesh axis layout (``parallel/mesh.py``): data-parallel replicas and
+    #: tensor parallelism; read by nothing, as in the JAX package
+    mesh_replica_axis: int = -1  # -1 = all local devices
+    mesh_tensor_axis: int = 1
     #: max cached ASR programs per engine
     compile_cache_max: int = 32
 
