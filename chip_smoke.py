@@ -96,6 +96,9 @@ exits non-zero without printing a result:
    latents held to the same module on the CPU, its device ms (graph replay)
    and its ms launched eagerly; WavLM base-plus-sv (seeded) embedding 2.5 s
    and 10 s on the card, each held to the CPU, timed the same two ways; a
+   seeded HF checkpoint with ``layer_weights`` (13 non-uniform logits, HF's
+   weighted layer sum) embedding 2.5 s, held to the CPU and timed beside
+   the last state alone in turns; a
    seeded HF-layout WavLM checkpoint in two BF16
    shards under ``build/`` loaded through ``load_or_init_wavlm`` (every leaf
    equal), the load seconds, deleted; ``clone_speaker`` on phase 7's model
@@ -145,7 +148,9 @@ exits non-zero without printing a result:
    voice (time to the first chunk and stream ms, host clock), two greedy
    streams at once equal to their lone runs, voice enrolment,
    ``/clone_speaker``, ``/tts_stream`` and the speakers list; the CLI's
-   ``run --help`` and ``run-tts --help``.
+   ``run --help`` and ``run-tts --help``; the Whisper tokenizer's
+   ``encode`` on a written vocabulary and merges (HF's ids, with neither
+   ``regex`` nor ``transformers`` on the machine).
 13. every further Whisper size (tiny, base, small, medium, large-v3,
    large-v3-turbo, distil-large-v2, distil-large-v3) at its published
    widths, one at a time, with the production settings (bf16, int8
@@ -2586,17 +2591,19 @@ def check_conditioning(torch, dev):
            err <= COND_REL and bool(torch.isfinite(got).all()))
 
 
-def _seeded_hf_wavlm(torch, dev, cfg, seed):
+def _seeded_hf_wavlm(torch, dev, cfg, seed, weighted_layer_sum=False):
     """A seeded HF ``WavLMForXVector`` state dict of ``cfg`` in bf16 on the
     CPU, drawn on the card: weights at 1/sqrt(fan_in), biases 0.02, vector
-    gains near 1."""
+    gains near 1; with ``weighted_layer_sum``, ``layer_weights`` ~ N(0, 1)."""
     from wis_tpu_torch.utils.selftest import hf_wavlm_shapes
 
     g = torch.Generator(device=dev).manual_seed(seed)
     out = {}
-    for name, shape in hf_wavlm_shapes(cfg).items():
+    for name, shape in hf_wavlm_shapes(cfg, weighted_layer_sum).items():
         a = torch.randn(shape, generator=g, device=dev)
-        if name.endswith("bias"):
+        if name == "layer_weights":
+            pass  # N(0, 1): a softmax far from uniform
+        elif name.endswith("bias"):
             a = a * 0.02
         elif len(shape) == 1 or name.endswith(("original0", "gru_rel_pos_const")):
             a = a * 0.1 + 1.0
@@ -2642,6 +2649,7 @@ def check_wavlm(torch, dev):
               f"launched eagerly (between CUDA events, median of 5); CPU {cpu_s:.2f} s")
         expect(f"wavlm embedding of {seconds} s {err:.3e} off the CPU's",
                err <= WAVLM_REL and bool(torch.isfinite(got).all()))
+    check_wavlm_weighted_sum(torch, dev, cfg)
 
     root = os.path.join(REPO, "build", "wavlm_checkpoint_smoke")
     shutil.rmtree(root, ignore_errors=True)
@@ -2666,6 +2674,44 @@ def check_wavlm(torch, dev):
         expect("wavlm checkpoint leaves differ", equal == leaves)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def check_wavlm_weighted_sum(torch, dev, cfg):
+    """A seeded HF checkpoint with ``layer_weights`` (13 non-uniform
+    logits): 2.5 s embedded on the card through the weighted layer sum,
+    held to the CPU within WAVLM_REL, timed beside the same tree without
+    the leaf (the last state only) in turns."""
+    from wis_tpu_torch.models.wavlm.model import params_from_hf_wavlm, xvector_embed
+
+    sd = _seeded_hf_wavlm(torch, dev, cfg, seed=23, weighted_layer_sum=True)
+    host = params_from_hf_wavlm(sd, cfg)
+    weighted = _tree_to(host, dev)
+    last = {k: v for k, v in weighted.items() if k != "layer_weights"}
+    softmax = torch.softmax(host["layer_weights"], -1)
+    audio = torch.from_numpy(_voice_audio(2.5, 120.0, 83))[None]
+    a_dev = audio.to(dev)
+    with torch.inference_mode():
+        got = xvector_embed(weighted, a_dev, cfg)
+        last_got = xvector_embed(last, a_dev, cfg)
+        ms, eager_ms = {}, {}
+        for name in ("weighted", "last state", "last state", "weighted"):
+            tree = weighted if name == "weighted" else last
+            ms.setdefault(name, []).append(
+                _median_ms(lambda: xvector_embed(tree, a_dev, cfg), reps=3, replays=5))
+            eager_ms.setdefault(name, []).append(
+                _event_ms(torch, lambda: xvector_embed(tree, a_dev, cfg)))
+        want = xvector_embed(host, audio, cfg)
+    err, off = _rel_l2(torch, got, want), _rel_l2(torch, last_got, got)
+    times = "; ".join(f"{name} device {', '.join(f'{t:.3f}' for t in ms[name])} ms (CUDA-graph "
+                      f"replay), {', '.join(f'{t:.3f}' for t in eager_ms[name])} ms launched "
+                      f"eagerly" for name in ("weighted", "last state"))
+    print(f"wavlm weighted layer sum ({len(softmax)} layer_weights, softmax "
+          f"{float(softmax.min()):.3f}-{float(softmax.max()):.3f}, seeded HF checkpoint) embeds "
+          f"2.5 s: {tuple(got.shape)}, relative L2 to the CPU {err:.3e} (bound {WAVLM_REL:g}), "
+          f"the last state alone {off:.3e} off it; in turns weighted, last, last, weighted: "
+          f"{times}")
+    expect(f"wavlm weighted-sum embedding {err:.3e} off the CPU's",
+           err <= WAVLM_REL and bool(torch.isfinite(got).all()) and off > 0)
 
 
 def check_clone(torch, dev, xtts, counters):
@@ -3431,6 +3477,63 @@ def check_apps(torch, dev, engine, counters, xtts, session_text, card):
     expect("aiohttp imported by the cores", "aiohttp" not in sys.modules)
     print("python -m wis_tpu_torch.cli run --help, run-tts --help: exit 0; aiohttp imported: "
           "False")
+    check_tokenizer_encode()
+
+
+#: a byte-level vocabulary's merges and a text with the ids HF's
+#: ``GPT2Tokenizer`` gives it on the files ``write_tokenizer_files`` writes
+#: (``tests/test_torch_tokenizer.py`` holds these ids to HF's, and the port's
+#: ``encode`` to HF's on hypothesis text): letters, digits and
+#: ``_`` split as GPT-2 splits them, a contraction, two-byte and CJK letters, a
+#: number that is no digit, a run of spaces before a word
+TOKENIZER_MERGES = ("c 1", "o _", "Ġ t", "h e", "Ġt he", "' s", "Ã ©")
+TOKENIZER_TEXT = "abc123 foo_bar: the café's 3½ 日本  ok\n"
+TOKENIZER_IDS = [64, 65, 66, 16, 17, 18, 220, 69, 78, 78, 62, 65, 64, 81, 25, 260, 220, 66, 64,
+                 69, 262, 261, 220, 18, 126, 121, 220, 162, 245, 98, 162, 250, 105, 220, 220,
+                 78, 74, 198]
+
+
+def write_tokenizer_files(root):
+    """``vocab.json`` (the 256 byte symbols in GPT-2's order, each merge's
+    result, ``<|endoftext|>``) and ``merges.txt`` of ``TOKENIZER_MERGES``
+    into ``root``; returns the vocabulary."""
+    from wis_tpu_torch.models.whisper.tokenizer import _bytes_to_unicode
+
+    vocab = {s: i for i, s in enumerate(_bytes_to_unicode().values())}
+    for m in TOKENIZER_MERGES:
+        vocab[m.replace(" ", "")] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    with open(os.path.join(root, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(root, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(TOKENIZER_MERGES) + "\n")
+    return vocab
+
+
+def check_tokenizer_encode():
+    """The Whisper tokenizer's encode half on a written ``vocab.json`` and
+    ``merges.txt`` (under build/, deleted): HF's ids, the text back from
+    ``decode``, and neither ``regex`` nor ``transformers`` loaded."""
+    from wis_tpu_torch.models.whisper.tokenizer import WhisperTokenizer
+
+    root = os.path.join(REPO, "build", "tokenizer_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        vocab = write_tokenizer_files(root)
+        tok = WhisperTokenizer.from_dir(root)
+        t0 = time.perf_counter()
+        ids = tok.encode(TOKENIZER_TEXT)
+        encode_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    loaded = sorted({"regex", "transformers"} & set(sys.modules))
+    print(f"tokenizer encode ({len(vocab)}-entry vocabulary, {len(TOKENIZER_MERGES)} merges from "
+          f"merges.txt): {len(TOKENIZER_TEXT)} characters → {len(ids)} ids in {encode_ms:.3f} ms "
+          f"(host clock), equal to GPT2Tokenizer's {ids == TOKENIZER_IDS}, decoded back "
+          f"{tok.decode(ids) == TOKENIZER_TEXT}; regex / transformers loaded: {loaded}")
+    expect("tokenizer encode differs from GPT2Tokenizer's",
+           ids == TOKENIZER_IDS and tok.decode(ids) == TOKENIZER_TEXT and not loaded)
 
 
 # --------------------------------------------------------------------------- #

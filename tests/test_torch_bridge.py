@@ -161,8 +161,8 @@ def test_tokenizer_layout_prompts_and_decode_equal():
 
 
 def test_tokenizer_vocab_files_equal(tmp_path):
-    """A model directory's vocab.json and generation config load the same
-    decode table and suppress lists on both sides."""
+    """A model directory's vocab.json, merges.txt and generation config load
+    the same decode table, merges and suppress lists on both sides."""
     import json
 
     from wis_tpu.models.whisper.tokenizer import WhisperTokenizer as J
@@ -170,6 +170,7 @@ def test_tokenizer_vocab_files_equal(tmp_path):
 
     vocab = {"hello": 0, "Ġworld": 1, "!": 2}
     (tmp_path / "vocab.json").write_text(json.dumps(vocab))
+    (tmp_path / "merges.txt").write_text("#version: 0.2\nh e\n\nhe llo\nĠ w\n")
     (tmp_path / "generation_config.json").write_text(
         json.dumps({"suppress_tokens": [1, 2], "begin_suppress_tokens": [220]})
     )
@@ -177,6 +178,7 @@ def test_tokenizer_vocab_files_equal(tmp_path):
     assert t.decode([0, 1, 2, 50257]) == j.decode([0, 1, 2, 50257]) == "hello world!"
     assert (t.suppress_tokens, t.begin_suppress_tokens) == (
         j.suppress_tokens, j.begin_suppress_tokens)
+    assert t.merges == j.merges == {("h", "e"): 0, ("he", "llo"): 1, ("Ġ", "w"): 2}
 
 
 def test_languages_equal():

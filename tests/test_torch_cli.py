@@ -4,7 +4,10 @@ repo's configs and on a broken one; the parser has ``bench``, ``check``
 and ``check-edge``; ``check --device cpu`` prints its fields and ``check``
 raises without a card; and no module of the port imports ``wis_tpu`` or
 JAX (a fresh interpreter that refuses them imports every module and runs
-``check`` and ``check-edge``).
+``check`` and ``check-edge``); ``python -m wis_tpu_torch.server.app
+[port]`` and ``...tts_app [port]`` serve through ``run`` / ``run-tts``
+with ``wis_tpu``'s default ports and, without a card, exit with the
+device error instead of serving on the CPU.
 """
 
 import json
@@ -85,7 +88,7 @@ def test_check_without_a_card_raises():
 GUARD = r'''
 import importlib, io, json, pkgutil, sys, contextlib
 
-REFUSED = ("jax", "jaxlib", "wis_tpu")
+REFUSED = ("jax", "jaxlib", "wis_tpu", "regex", "transformers")
 refused = []
 
 class Refuse:
@@ -132,3 +135,43 @@ def test_no_port_module_imports_wis_tpu_or_jax():
     from wis_tpu.version import __version__
 
     assert out["version"] == __version__
+
+
+MAINS = [("wis_tpu_torch.server.app", "create_app", 19000,
+          dict(warmup=True, device="cuda"), dict(ssl_context=None, keepalive_timeout=3600)),
+         ("wis_tpu_torch.server.tts_app", "create_tts_app", 19010, dict(device="cuda"), {})]
+
+
+@pytest.mark.parametrize("module,factory,default,app_kw,run_kw", MAINS)
+@pytest.mark.parametrize("argv", [[], ["8123"]])
+def test_server_main_parses_the_port(monkeypatch, module, factory, default, app_kw, run_kw,
+                                     argv):
+    """``main()`` reads ``[port]`` from argv as ``wis_tpu``'s mains do, logs
+    as they do, and serves what the CLI's ``run`` / ``run-tts`` serve."""
+    import importlib
+
+    from aiohttp import web
+
+    from wis_tpu_torch.utils import logging as port_logging
+
+    mod = importlib.import_module(module)
+    calls = []
+    monkeypatch.setattr(mod, factory, lambda **kw: ("app", kw))
+    monkeypatch.setattr(web, "run_app", lambda app, **kw: calls.append((app, kw)))
+    monkeypatch.setattr(port_logging, "configure_logging", lambda: calls.append("logging"))
+    monkeypatch.setattr(sys, "argv", [module] + argv)
+    mod.main()
+    port = int(argv[0]) if argv else default
+    assert calls == ["logging", (("app", app_kw), dict(port=port, **run_kw))]
+
+
+@pytest.mark.parametrize("module", [m[0] for m in MAINS])
+def test_server_main_without_a_card_refuses(module):
+    if torch.cuda.is_available():
+        pytest.skip("asserts the refusal without a card")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-m", module, "0"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "RuntimeError: device 'cuda' requested but no CUDA device is available" in res.stderr
+    assert "Running on" not in res.stdout + res.stderr

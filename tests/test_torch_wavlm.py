@@ -10,7 +10,11 @@ at ``tests/test_wavlm.py``'s micro config:
 - the departures from wis_tpu, each pinned: the unbiased pooling std, the
   relative-position gate taken from the layer's input, no padding above
   1 s, and sorted BF16 shards;
-- ``hf_wavlm_shapes`` equal to ``transformers``' state dict.
+- ``hf_wavlm_shapes`` equal to ``transformers``' state dict;
+- HF's weighted layer sum (``use_weighted_layer_sum``, which the JAX
+  package lacks): with ``layer_weights`` the embedding within 1e-3 of HF's
+  and the last state alone clearly off it; without the key the frames are
+  the last-state path's, bit for bit.
 """
 
 import jax.numpy as jnp
@@ -31,7 +35,7 @@ MICRO = dict(hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64,
 JCFG, TCFG = jw.WavLMConfig(**MICRO), tw.WavLMConfig(**MICRO)
 
 
-def _hf_config():
+def _hf_config(**kw):
     from transformers import WavLMConfig as HFConfig
 
     return HFConfig(
@@ -45,15 +49,15 @@ def _hf_config():
         tdnn_dim=list(TCFG.tdnn_dim), tdnn_kernel=list(TCFG.tdnn_kernel),
         tdnn_dilation=list(TCFG.tdnn_dilation), xvector_output_dim=TCFG.xvector_output_dim,
         do_stable_layer_norm=False, feat_extract_norm="group", apply_spec_augment=False,
-        layerdrop=0.0,
+        layerdrop=0.0, **kw,
     )
 
 
-def _hf_model(sd=None):
+def _hf_model(sd=None, **kw):
     from transformers import WavLMForXVector
 
     torch.manual_seed(0)
-    model = WavLMForXVector(_hf_config()).eval()
+    model = WavLMForXVector(_hf_config(**kw)).eval()
     if sd is not None:
         model.load_state_dict(sd)
     return model
@@ -244,3 +248,65 @@ def test_hf_key_list_equals_transformers():
     got = hf_wavlm_shapes(TCFG)
     assert list(got) == list(want)
     assert got == want
+
+
+def test_hf_key_list_with_weighted_layer_sum_equals_transformers():
+    from transformers import WavLMForXVector
+
+    with torch.device("meta"):
+        model = WavLMForXVector(_hf_config(use_weighted_layer_sum=True))
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    got = hf_wavlm_shapes(TCFG, weighted_layer_sum=True)
+    assert list(got) == list(want)
+    assert got == want and got["layer_weights"] == (TCFG.num_layers + 1,)
+
+
+@pytest.fixture(scope="module")
+def hf_weighted(hf):
+    """HF ``WavLMForXVector(use_weighted_layer_sum=True)`` with the ``hf``
+    fixture's weights, the encoder layers' matrices ×10 (at HF's init each
+    layer barely moves the state, and every h_i is near the last), and
+    seeded non-uniform ``layer_weights``."""
+    _, sd = hf
+    sd = {k: v * 10 if k.startswith("wavlm.encoder.layers.") and v.ndim == 2
+          and "rel_attn_embed" not in k else v for k, v in sd.items()}
+    sd = {"layer_weights": torch.from_numpy(
+        np.random.default_rng(5).standard_normal(TCFG.num_layers + 1).astype(np.float32)),
+        **sd}
+    return _hf_model(sd, use_weighted_layer_sum=True), sd
+
+
+def test_weighted_layer_sum_matches_hf(hf_weighted):
+    """The softmax-weighted sum of the embedding output and each layer's
+    output feeds the projector: the port's embedding within 1e-3 of HF's;
+    the same weights read from the last state only are far off it."""
+    model, sd = hf_weighted
+    audio = _audio(16000, seed=4)
+    params = tw.params_from_hf_wavlm(sd, TCFG)
+    assert torch.equal(params["layer_weights"], sd["layer_weights"])
+    last_only = {k: v for k, v in params.items() if k != "layer_weights"}
+    with torch.no_grad():
+        want = model(input_values=torch.from_numpy(audio)).embeddings.numpy()
+        got = tw.xvector_embed(params, torch.from_numpy(audio), TCFG).numpy()
+        last = tw.xvector_embed(last_only, torch.from_numpy(audio), TCFG).numpy()
+    assert got.shape == want.shape == (1, TCFG.xvector_output_dim)
+    assert _rel(got, want) < 1e-3
+    assert _rel(last, want) > 1e-2
+
+
+def test_without_layer_weights_the_frames_are_the_last_states(hf):
+    """No ``layer_weights`` key: no leaf, and ``tdnn_frames`` bit-equal to
+    the last-state path written out (the frames' parity with the JAX
+    package is test_frames_match_jax's)."""
+    _, sd = hf
+    p = tw.params_from_hf_wavlm(sd, TCFG)
+    assert "layer_weights" not in p
+    audio = torch.from_numpy(_audio(32000, seed=6))
+    with torch.no_grad():
+        x = tw._layer_norm(tw.feature_encoder(p["feature_encoder"], audio, TCFG),
+                           p["fp_ln_g"], p["fp_ln_b"])
+        x = tw.encoder(p["encoder"], x @ p["fp_w"] + p["fp_b"], TCFG)
+        x = x @ p["proj_w"] + p["proj_b"]
+        for t, k, dil in zip(p["tdnn"], TCFG.tdnn_kernel, TCFG.tdnn_dilation):
+            x = tw._tdnn_layer(x, t["w"], t["b"], k, dil)
+        assert torch.equal(tw.tdnn_frames(p, audio, TCFG), x)

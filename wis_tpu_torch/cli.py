@@ -13,6 +13,9 @@
 port's apps (``server/app.py``, ``server/tts_app.py``): the ASR server,
 TLS-direct when a certificate and key are given, with a keep-alive of an
 hour, and the TTS server. They need aiohttp; their ``--help`` does not.
+``python -m wis_tpu_torch.server.app [port]`` and ``python -m
+wis_tpu_torch.server.tts_app [port]`` (the apps' ``main``) run ``run`` and
+``run-tts`` on that port.
 
 ``convert-model`` is the port's counterpart of ``wisctl convert-model``:
 ``--selftest <size>`` converts a synthetic full-dims HF Whisper

@@ -30,7 +30,11 @@ package departs from HF, the port follows HF:
   JAX package pads every input to a power-of-two number of seconds with no
   mask, and the padding enters attention and the pooling;
 - ``load_or_init_wavlm`` reads the shards in sorted order through the
-  port's safetensors reader, which returns BF16 tensors.
+  port's safetensors reader, which returns BF16 tensors;
+- a checkpoint with HF's ``layer_weights`` (``use_weighted_layer_sum``)
+  feeds the projector the softmax-weighted sum of the embedding output and
+  every layer's output, as ``WavLMForXVector`` does; the JAX package reads
+  only the last state.
 """
 
 from __future__ import annotations
@@ -169,9 +173,13 @@ def _attention(x: torch.Tensor, layer: Dict, pos_bias: torch.Tensor,
     return ctx @ layer["o_w"] + layer["o_b"]
 
 
-def encoder(params: Dict, x: torch.Tensor, cfg: WavLMConfig) -> torch.Tensor:
+def encoder(params: Dict, x: torch.Tensor, cfg: WavLMConfig,
+            layer_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Feature-projected hidden states → the transformer's output (post-LN
-    encoder, HF ``do_stable_layer_norm=False``)."""
+    encoder, HF ``do_stable_layer_norm=False``). With ``layer_weights``
+    (num_layers + 1 logits) → Σ softmax(layer_weights)[i] · h_i over the
+    embedding output h_0 (after ``enc_ln``) and each layer's output, HF
+    ``WavLMForXVector``'s weighted layer sum."""
     pc = params["pos_conv"]
     k = cfg.num_conv_pos_embeddings
     pos = F.conv1d(x.transpose(1, 2), pc["w"].permute(2, 1, 0), pc["b"], padding=k // 2,
@@ -182,11 +190,19 @@ def encoder(params: Dict, x: torch.Tensor, cfg: WavLMConfig) -> torch.Tensor:
     x = _layer_norm(x, params["enc_ln_g"], params["enc_ln_b"])
 
     pos_bias = _position_bias(params, x.shape[1], cfg)
+    # every state is kept only for the weighted sum
+    states = None if layer_weights is None else [x]
     for layer in params["layers"]:
         x = _layer_norm(x + _attention(x, layer, pos_bias, cfg), layer["ln1_g"], layer["ln1_b"])
         ff = F.gelu(x @ layer["ff1_w"] + layer["ff1_b"]) @ layer["ff2_w"] + layer["ff2_b"]
         x = _layer_norm(x + ff, layer["ln2_g"], layer["ln2_b"])
-    return x
+        if states is not None:
+            states.append(x)
+    if states is None:
+        return x
+    # HF's order of operations: stack, scale by the softmax, sum
+    w = torch.softmax(layer_weights, dim=-1)
+    return (torch.stack(states, dim=1) * w.view(-1, 1, 1)).sum(dim=1)
 
 
 # --------------------------------------------------------------------------- #
@@ -209,7 +225,7 @@ def tdnn_frames(params: Dict, audio: torch.Tensor, cfg: WavLMConfig) -> torch.Te
     x = _layer_norm(feature_encoder(params["feature_encoder"], audio, cfg),
                     params["fp_ln_g"], params["fp_ln_b"])
     x = x @ params["fp_w"] + params["fp_b"]
-    x = encoder(params["encoder"], x, cfg)
+    x = encoder(params["encoder"], x, cfg, params.get("layer_weights"))
     x = x @ params["proj_w"] + params["proj_b"]
     for t, k, dil in zip(params["tdnn"], cfg.tdnn_kernel, cfg.tdnn_dilation):
         x = _tdnn_layer(x, t["w"], t["b"], k, dil)
@@ -232,7 +248,10 @@ def params_from_hf_wavlm(sd: StateDict, cfg: WavLMConfig, dtype=torch.float32,
                          device: DeviceLike = "cpu") -> Dict:
     """Convert an HF ``WavLMForXVector`` state dict (torch tensors of any
     float dtype) into the JAX package's tree, on ``device`` in ``dtype``;
-    leaf-equal to the JAX package's conversion of the same values."""
+    leaf-equal to the JAX package's conversion of the same values. A
+    ``layer_weights`` key (``use_weighted_layer_sum``) becomes the leaf
+    ``params["layer_weights"]``, which the JAX package has no counterpart
+    of."""
 
     def put(t: torch.Tensor) -> torch.Tensor:
         return t.to(dtype=dtype).contiguous().to(device)
@@ -300,7 +319,7 @@ def params_from_hf_wavlm(sd: StateDict, cfg: WavLMConfig, dtype=torch.float32,
         w_, b_ = lin(f"tdnn.{i}.kernel")
         tdnn.append({"w": w_, "b": b_})
     fe_w, fe_b = lin("feature_extractor")
-    return {
+    params = {
         "feature_encoder": {"conv_layers": conv_layers},
         "fp_ln_g": g("wavlm.feature_projection.layer_norm.weight"),
         "fp_ln_b": g("wavlm.feature_projection.layer_norm.bias"),
@@ -319,6 +338,9 @@ def params_from_hf_wavlm(sd: StateDict, cfg: WavLMConfig, dtype=torch.float32,
         "fe_w": fe_w,
         "fe_b": fe_b,
     }
+    if "layer_weights" in sd:
+        params["layer_weights"] = g("layer_weights")
+    return params
 
 
 def _host(t: torch.Tensor) -> np.ndarray:

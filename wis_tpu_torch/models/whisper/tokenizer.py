@@ -1,28 +1,36 @@
-"""Whisper tokenizer layout, prompts, text decode and timestamp segments —
-the ASR half of ``wis_tpu/models/whisper/tokenizer.py``, carried as a copy. Loading that
-file by path would still import ``wis_tpu.languages`` and so the
-``wis_tpu`` package, which the port never loads.
+"""Whisper tokenizer layout, prompts, text decode and encode and timestamp
+segments — ``wis_tpu/models/whisper/tokenizer.py``, carried as a copy.
+Loading that file by path would still import ``wis_tpu.languages`` and so
+the ``wis_tpu`` package, which the port never loads.
 
 Special-token ids are computed from the public multilingual vocabulary
-layout, so prompt construction needs no vocabulary files. Text decode is
-GPT-2 byte-level, from HF ``vocab.json`` / ``tokenizer.json`` when a model
-directory provides one, else the same deterministic placeholder vocabulary
-the JAX package uses. BPE *encode* (XTTS text conditioning) is not part of
-the ASR path and is not carried. A CPU test holds the layout, prompts,
-suppress lists, placeholder decode, special ids and segment parsing equal
-to ``wis_tpu``'s.
+layout, so prompt construction needs no vocabulary files. Text decode and
+encode are GPT-2 byte-level BPE, from HF ``vocab.json`` + ``merges.txt`` or
+``tokenizer.json`` when a model directory provides them, else the same
+deterministic placeholder vocabulary the JAX package uses. No serving path
+encodes text. A CPU test holds the layout, prompts, suppress lists,
+placeholder decode and encode, special ids, merges and segment parsing
+equal to ``wis_tpu``'s.
+
+Where the JAX package departs from the HF files it reads, the port follows
+HF: ``encode`` splits words with GPT-2's own pre-tokenizer
+(``_gpt2_words``), where the JAX package's approximation keeps letters,
+digits and ``_`` in one word; a CPU test holds ``encode`` equal to HF's
+``GPT2Tokenizer``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import unicodedata
 from dataclasses import dataclass, field
 from functools import lru_cache
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from wis_tpu_torch.languages import LANGUAGES
 
+N_BASE_VOCAB = 50257  # GPT-2 byte-level BPE tokens
 EOT = 50257  # <|endoftext|>
 SOT = 50258  # <|startoftranscript|>
 LANG_BASE = 50259  # <|en|> .. language tokens in registry order
@@ -212,11 +220,61 @@ def build_prompt(
     return ids
 
 
+#: GPT-2's contractions, the first alternatives of its pre-tokenizer
+_CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
+#: C0 separators that ``str.isspace`` counts and Unicode's White_Space
+#: (the ``regex`` package's ``\s``, which GPT-2's pattern uses) does not
+_NOT_WHITE_SPACE = frozenset("\x1c\x1d\x1e\x1f")
+
+
+def _char_class(c: str) -> str:
+    r""""s" (``\s``), "L" (``\p{L}``), "N" (``\p{N}``) or "o" (the rest)."""
+    if c.isspace() and c not in _NOT_WHITE_SPACE:
+        return "s"
+    major = unicodedata.category(c)[0]
+    return major if major in "LN" else "o"
+
+
+def _gpt2_words(text: str) -> List[str]:
+    r"""GPT-2's pre-tokenizer, ``re.findall`` of
+    ``'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+``,
+    as a scanner over ``unicodedata`` categories: Python's ``re`` has no
+    ``\p{…}`` and the ``regex`` package is not a dependency. Characters
+    unassigned in this Python's Unicode tables fall in the last class."""
+    kinds = [_char_class(c) for c in text]
+    n = len(text)
+    words: List[str] = []
+    i = 0
+    while i < n:
+        if text[i] == "'":
+            c = next((c for c in _CONTRACTIONS if text.startswith(c, i)), None)
+            if c:
+                words.append(c)
+                i += len(c)
+                continue
+        # one optional leading " " before a run of letters, digits or others
+        j = i + 1 if text[i] == " " and i + 1 < n and kinds[i + 1] != "s" else i
+        end = j + 1
+        if kinds[j] != "s":
+            while end < n and kinds[end] == kinds[j]:
+                end += 1
+        else:
+            while end < n and kinds[end] == "s":
+                end += 1
+            # \s+(?!\S): a run followed by a non-space ends one early
+            if end < n and end - i > 1:
+                end -= 1
+        words.append(text[i:end])
+        i = end
+    return words
+
+
 @dataclass
 class WhisperTokenizer:
-    """Byte-level BPE decode with the Whisper special-token layout."""
+    """Byte-level BPE with the Whisper special-token layout."""
 
     vocab: Optional[Dict[str, int]] = None  # token string -> id
+    merges: Optional[Dict[Tuple[str, str], int]] = None  # pair -> rank
     suppress_tokens: Tuple[int, ...] = DEFAULT_SUPPRESS_TOKENS
     begin_suppress_tokens: Tuple[int, ...] = DEFAULT_BEGIN_SUPPRESS
     layout: VocabLayout = V2_LAYOUT
@@ -235,18 +293,30 @@ class WhisperTokenizer:
     def from_dir(
         cls, model_dir: str, layout: VocabLayout = V2_LAYOUT
     ) -> "WhisperTokenizer":
-        """Load the vocabulary (tokenizer.json or vocab.json) and the
-        generation config's suppress lists from an HF model directory;
-        fall back to the placeholder vocab."""
-        vocab = None
+        """Load the vocabulary and merges (tokenizer.json, or vocab.json +
+        merges.txt) and the generation config's suppress lists from an HF
+        model directory; fall back to the placeholder vocab."""
+        vocab = merges = None
         tok_json = os.path.join(model_dir, "tokenizer.json")
         vocab_json = os.path.join(model_dir, "vocab.json")
+        merges_txt = os.path.join(model_dir, "merges.txt")
         if os.path.isfile(tok_json):
             with open(tok_json, encoding="utf-8") as f:
-                vocab = json.load(f)["model"]["vocab"]
+                model = json.load(f)["model"]
+            vocab = model["vocab"]
+            # each merge an "a b" string or, in newer files, an ["a", "b"] list
+            merges = {tuple(m.split(" ")) if isinstance(m, str) else tuple(m): i
+                      for i, m in enumerate(model["merges"])}
         elif os.path.isfile(vocab_json):
             with open(vocab_json, encoding="utf-8") as f:
                 vocab = json.load(f)
+            if os.path.isfile(merges_txt):
+                merges = {}
+                with open(merges_txt, encoding="utf-8") as f:
+                    for line in f:
+                        line = line.strip()
+                        if line and not line.startswith("#version"):
+                            merges[tuple(line.split(" "))] = len(merges)
         suppress = DEFAULT_SUPPRESS_TOKENS
         begin_suppress = DEFAULT_BEGIN_SUPPRESS
         gen_cfg = os.path.join(model_dir, "generation_config.json")
@@ -259,6 +329,7 @@ class WhisperTokenizer:
             )
         return cls(
             vocab=vocab,
+            merges=merges,
             suppress_tokens=suppress,
             begin_suppress_tokens=begin_suppress,
             layout=layout,
@@ -307,3 +378,40 @@ class WhisperTokenizer:
         if i >= lay.timestamp_base:
             return f"<|{(i - lay.timestamp_base) * 0.02:.2f}|>"
         return f"<|{i}|>"
+
+    def encode(self, text: str) -> List[int]:
+        """Text → BPE ids (no special tokens), HF ``GPT2Tokenizer``'s
+        ``encode(text, add_special_tokens=False)`` on the same files; a
+        piece missing from the vocabulary is 0. Without a vocabulary, the
+        placeholder: each UTF-8 byte offset into the base vocabulary."""
+        if not self.vocab:
+            return [min(b + 320, N_BASE_VOCAB - 1) for b in text.encode("utf-8")]
+        b2u = _bytes_to_unicode()
+        ids: List[int] = []
+        for word in _gpt2_words(text):
+            mapped = "".join(b2u[b] for b in word.encode("utf-8"))
+            ids.extend(self.vocab.get(piece, 0) for piece in self._bpe(mapped))
+        return ids
+
+    def _bpe(self, token: str) -> List[str]:
+        """``wis_tpu``'s merge loop: join the leftmost of the lowest-ranked
+        pairs until no pair has a rank. On a trained merge list (each
+        merge's halves ranked before it) this is GPT-2's loop, which joins
+        every occurrence of that pair in one pass."""
+        if self.merges is None:
+            return [token]
+        parts = list(token)
+        while len(parts) > 1:
+            pairs = [(parts[i], parts[i + 1]) for i in range(len(parts) - 1)]
+            ranked = [
+                (self.merges.get(p, float("inf")), i) for i, p in enumerate(pairs)
+            ]
+            best_rank, best_i = min(ranked)
+            if best_rank == float("inf"):
+                break
+            parts = (
+                parts[:best_i]
+                + [parts[best_i] + parts[best_i + 1]]
+                + parts[best_i + 2 :]
+            )
+        return parts

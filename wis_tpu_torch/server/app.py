@@ -25,6 +25,8 @@ driven directly (``chip_smoke.py`` phase 12).
 Inference goes through the port's dynamic batcher (``runtime/batcher.py``)
 on its own thread, or a replica pool over every visible card
 (``parallel/replicas.py``), so it never blocks the event loop.
+``python -m wis_tpu_torch.server.app [port]`` serves it on the card
+(``main``).
 """
 
 from __future__ import annotations
@@ -539,3 +541,19 @@ def create_app(
     app.on_startup.append(on_startup)
     app.on_cleanup.append(on_cleanup)
     return app
+
+
+def main() -> None:
+    """``python -m wis_tpu_torch.server.app [port]``: the ASR server on the
+    card, warmed up, on ``port`` (19000 by default), served as ``python -m
+    wis_tpu_torch.cli run --port <port>`` serves it (needs aiohttp)."""
+    import sys
+
+    from wis_tpu_torch import cli
+
+    port = int(sys.argv[1]) if len(sys.argv) > 1 else 19000
+    cli.main(["run", "--port", str(port)])
+
+
+if __name__ == "__main__":
+    main()

@@ -16,7 +16,8 @@ them.
 As in ``server/app.py``, each route is a core over the app's ``TTSState``
 (``build_tts_state``) returning a ``Reply`` (a stream for the two TTS
 routes: ``stream_tts``, an async generator fed by a producer thread) and
-an aiohttp adapter that ``create_tts_app`` builds.
+an aiohttp adapter that ``create_tts_app`` builds. ``python -m
+wis_tpu_torch.server.tts_app [port]`` serves it on the card (``main``).
 """
 
 from __future__ import annotations
@@ -365,3 +366,19 @@ def create_tts_app(settings: Optional[APISettings] = None, model: Optional[XTTSM
     app.router.add_post("/api/tts", h_enroll)
     app.router.add_get("/api/tts/speakers", h_speakers)
     return app
+
+
+def main() -> None:
+    """``python -m wis_tpu_torch.server.tts_app [port]``: the TTS server on
+    the card on ``port`` (19010 by default), served as ``python -m
+    wis_tpu_torch.cli run-tts --port <port>`` serves it (needs aiohttp)."""
+    import sys
+
+    from wis_tpu_torch import cli
+
+    port = int(sys.argv[1]) if len(sys.argv) > 1 else 19010
+    cli.main(["run-tts", "--port", str(port)])
+
+
+if __name__ == "__main__":
+    main()

@@ -195,14 +195,17 @@ def whisper_selftest(size: str, forward: bool = True, device: DeviceLike = "cuda
 # --------------------------------------------------------------------------- #
 # WavLM
 # --------------------------------------------------------------------------- #
-def hf_wavlm_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
+def hf_wavlm_shapes(cfg, weighted_layer_sum: bool = False) -> Dict[str, Tuple[int, ...]]:
     """{key: shape} of an HF ``WavLMForXVector`` state dict at cfg's dims
-    (post-LN encoder, group-norm feature extractor, no weighted layer sum,
-    HF's default two labels in the classifier's objective),
+    (post-LN encoder, group-norm feature extractor, HF's default two labels
+    in the classifier's objective; with ``weighted_layer_sum``, the
+    ``layer_weights`` of ``use_weighted_layer_sum=True``, else none),
     in transformers' order; written out by hand, as the card's machine has
     no ``transformers`` (a CPU test holds it equal to the package's)."""
     h = cfg.hidden_size
-    shapes = {"wavlm.masked_spec_embed": (h,)}
+    # the model's own parameter comes before its submodules' in state_dict
+    shapes = {"layer_weights": (cfg.num_layers + 1,)} if weighted_layer_sum else {}
+    shapes["wavlm.masked_spec_embed"] = (h,)
     c_in = 1
     for i, (c, k) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel)):
         p = f"wavlm.feature_extractor.conv_layers.{i}."
