@@ -12,6 +12,11 @@ both orders. Beams never permute the KV cache: the (B, K, T) ancestry map
 names each logical beam's physical row per position (``model.py``).
 
 The loop runs eagerly, one host check of the exit condition per token.
+Under the caller's current timer (``utils/timing``) it records the spans
+``asr.prefill`` (prefill, cache layout, cross-KV flattening and int8
+columns) and ``asr.decode`` (the loop), and in the loop an ``asr.step`` (the
+host launching one step and its selection) and an ``asr.sync`` (the exit
+check, the host blocked on the device) with their counts.
 ``fused=True`` runs each token through the fused decode step and the fused
 head (``ops/fused_decode``, ``ops/fused_logits``) on the kernels' layouts,
 as the JAX package's fused branch does.
@@ -51,6 +56,7 @@ from wis_tpu_torch.ops.attention import NEG_INF
 from wis_tpu_torch.ops.fused_decode import build_fused_decode_step, quantize_xa_columns
 from wis_tpu_torch.ops.fused_logits import apply_grammar, build_fused_logits_topk
 from wis_tpu_torch.parallel.axis import ModelAxis
+from wis_tpu_torch.utils.timing import count, span
 
 #: HF beam search's "effectively -inf" gating constant
 GATE = -1.0e9
@@ -165,51 +171,52 @@ def build_generate_xa(
         cap_eff = max(min(max_new_tokens, int(token_cap)), 1)
 
         # ---- prefill on batch B ---- #
-        cache0 = DecoderCache.zeros(cfg, B, cache_len, dtype, device, tp)
-        prompt = prompt.to(device=device, dtype=torch.long)
-        prompt_b = prompt.expand(B, prompt_len) if prompt.dim() == 1 else prompt
-        logits, cache0 = prefill(params, prompt_b, cache0, xa_kv, cfg, tp)
-        first_raw = logits[:, -1]  # (B, V) f32
-        first_masked = first_raw + begin_sup
-        first_lse = torch.logsumexp(
-            first_masked if renorm_suppressed else first_raw, dim=-1, keepdim=True
-        )
-        first_lp = first_masked - first_lse
-
-        if fused:
-            # flat time-major (L, D, T·B·K): column (t·B + b)·K + k, so each
-            # position's BK rows are one contiguous block
-            def flat_tmajor(c):  # (L, B, H, Dh, T)
-                flat = c.reshape(L, B, H * Dh, cache_len).permute(0, 2, 3, 1)
-                return flat.reshape(L, H * Dh, cache_len * B).repeat_interleave(K, dim=-1)
-
-            cache = DecoderCache(flat_tmajor(cache0.k), flat_tmajor(cache0.v), cache0.pos)
-
-            def flat_xa(xa):  # (L, B, H, Dh, S) → (L, H, Dh, B·S_pad)
-                t = F.pad(xa.permute(0, 2, 3, 1, 4), (0, s_pad - cfg.n_audio_ctx))
-                return t.reshape(L, H, Dh, B * s_pad)
-
-            xa_k_f, xa_v_f = flat_xa(xa_kv[0]), flat_xa(xa_kv[1])
-            xa_s_f = None
-            if xa_int8:
-                xa_k_f, xa_v_f, xa_s_f = quantize_xa_columns(xa_k_f, xa_v_f)
-            boff = (torch.arange(B, device=device) * K)[:, None, None]
-            bk_rows = torch.arange(BK, device=device)
-        else:
-            cache = DecoderCache(
-                cache0.k.repeat_interleave(K, dim=1),
-                cache0.v.repeat_interleave(K, dim=1),
-                cache0.pos,
+        with span("asr.prefill"):
+            cache0 = DecoderCache.zeros(cfg, B, cache_len, dtype, device, tp)
+            prompt = prompt.to(device=device, dtype=torch.long)
+            prompt_b = prompt.expand(B, prompt_len) if prompt.dim() == 1 else prompt
+            logits, cache0 = prefill(params, prompt_b, cache0, xa_kv, cfg, tp)
+            first_raw = logits[:, -1]  # (B, V) f32
+            first_masked = first_raw + begin_sup
+            first_lse = torch.logsumexp(
+                first_masked if renorm_suppressed else first_raw, dim=-1, keepdim=True
             )
-        # ancestry: prompt positions live in each beam's own (replicated)
-        # row; unwritten positions are -1 (masked)
-        own_row = torch.arange(K, device=device)[None, :, None].expand(B, K, cache_len)
-        anc = torch.where(
-            torch.arange(cache_len, device=device)[None, None, :] < prompt_len,
-            own_row,
-            -1,
-        )
-        beam_rows = torch.arange(K, device=device)
+            first_lp = first_masked - first_lse
+
+            if fused:
+                # flat time-major (L, D, T·B·K): column (t·B + b)·K + k, so each
+                # position's BK rows are one contiguous block
+                def flat_tmajor(c):  # (L, B, H, Dh, T)
+                    flat = c.reshape(L, B, H * Dh, cache_len).permute(0, 2, 3, 1)
+                    return flat.reshape(L, H * Dh, cache_len * B).repeat_interleave(K, dim=-1)
+
+                cache = DecoderCache(flat_tmajor(cache0.k), flat_tmajor(cache0.v), cache0.pos)
+
+                def flat_xa(xa):  # (L, B, H, Dh, S) → (L, H, Dh, B·S_pad)
+                    t = F.pad(xa.permute(0, 2, 3, 1, 4), (0, s_pad - cfg.n_audio_ctx))
+                    return t.reshape(L, H, Dh, B * s_pad)
+
+                xa_k_f, xa_v_f = flat_xa(xa_kv[0]), flat_xa(xa_kv[1])
+                xa_s_f = None
+                if xa_int8:
+                    xa_k_f, xa_v_f, xa_s_f = quantize_xa_columns(xa_k_f, xa_v_f)
+                boff = (torch.arange(B, device=device) * K)[:, None, None]
+                bk_rows = torch.arange(BK, device=device)
+            else:
+                cache = DecoderCache(
+                    cache0.k.repeat_interleave(K, dim=1),
+                    cache0.v.repeat_interleave(K, dim=1),
+                    cache0.pos,
+                )
+            # ancestry: prompt positions live in each beam's own (replicated)
+            # row; unwritten positions are -1 (masked)
+            own_row = torch.arange(K, device=device)[None, :, None].expand(B, K, cache_len)
+            anc = torch.where(
+                torch.arange(cache_len, device=device)[None, None, :] < prompt_len,
+                own_row,
+                -1,
+            )
+            beam_rows = torch.arange(K, device=device)
 
         def ts_rows(ts):
             """(prev_ts, prevprev_ts, max_ts) (B, K) → the head's ts_state
@@ -272,9 +279,10 @@ def build_generate_xa(
             )
             return cand_val, cand_tok, lse, cache, anc
 
-        if K == 1:
-            return _greedy(first_lp, cache, anc, run_step, cap_eff, device)
-        return _beam(first_lp, cache, anc, run_step, cap_eff, device)
+        with span("asr.decode"):
+            if K == 1:
+                return _greedy(first_lp, cache, anc, run_step, cap_eff, device)
+            return _beam(first_lp, cache, anc, run_step, cap_eff, device)
 
     if fused:
         def generate(params, packed, xa_kv, prompt, token_cap) -> GenerateResult:
@@ -302,22 +310,24 @@ def build_generate_xa(
         out_len = torch.ones((B, 1), dtype=torch.long, device=device)
         ts = _ts_init(tokens)
         t = 1
-        while t < cap_eff and not bool(finished.all()):
-            cand_val, cand_tok, lse, cache, anc = run_step(tokens, cache, anc, ts)
-            lp = (cand_val - lse).reshape(B, 1)
-            tok = torch.where(finished, eot, cand_tok.reshape(B, 1))
-            out[:, :, t] = tok
-            sum_lp = sum_lp + torch.where(finished, 0.0, lp)
-            out_len = torch.where(finished, out_len, out_len + 1)
-            if ts is not None:  # finished rows keep their state
-                prev, prevprev, max_ts = ts
-                tok_ts = tok >= ts_base
-                ts = (torch.where(finished, prev, tok_ts),
-                      torch.where(finished, prevprev, prev),
-                      torch.where(tok_ts & ~finished, torch.maximum(max_ts, tok), max_ts))
-            finished = finished | (tok == eot)
-            tokens = tok
-            t += 1
+        while t < cap_eff and not _host_check(finished.all()):
+            count("asr.step")
+            with span("asr.step"):
+                cand_val, cand_tok, lse, cache, anc = run_step(tokens, cache, anc, ts)
+                lp = (cand_val - lse).reshape(B, 1)
+                tok = torch.where(finished, eot, cand_tok.reshape(B, 1))
+                out[:, :, t] = tok
+                sum_lp = sum_lp + torch.where(finished, 0.0, lp)
+                out_len = torch.where(finished, out_len, out_len + 1)
+                if ts is not None:  # finished rows keep their state
+                    prev, prevprev, max_ts = ts
+                    tok_ts = tok >= ts_base
+                    ts = (torch.where(finished, prev, tok_ts),
+                          torch.where(finished, prevprev, prev),
+                          torch.where(tok_ts & ~finished, torch.maximum(max_ts, tok), max_ts))
+                finished = finished | (tok == eot)
+                tokens = tok
+                t += 1
         scores = sum_lp / _norm_len(out_len)
         best = torch.zeros((B,), dtype=torch.long, device=device)
         return GenerateResult(tokens=out, lengths=out_len, scores=scores, best=best)
@@ -393,27 +403,29 @@ def build_generate_xa(
         )
         ts = _ts_init(tokens)
         t = 1
-        while t < cap_eff and bool(unsat.any()):
-            cand_val, cand_tok, lse, cache, anc = run_step(tokens, cache, anc, ts)
-            cand_lp = (cand_val - lse).reshape(B, K, KC)
-            total = sum_lp[..., None] + cand_lp  # (B, K, KC)
-            vals, idx = top_k(total.reshape(B, K * KC), POOL)
-            parent = idx // KC
-            tok = torch.gather(cand_tok.reshape(B, K * KC), 1, idx)
-            cand_out = torch.gather(
-                out, 1, parent[..., None].expand(-1, -1, max_new_tokens)
-            )  # (B, POOL, max_new)
-            cand_out[:, :, t] = tok
-            sum_lp, tokens, new_parent, out, fin, unsat = _select(
-                vals, tok, parent, cand_out, t, fin, unsat
-            )
-            # re-parent: the ancestry map absorbs the permutation
-            anc = torch.gather(anc, 1, new_parent[..., None].expand(-1, -1, cache_len))
-            if ts is not None:
-                prev, prevprev, max_ts = (torch.gather(a, 1, new_parent) for a in ts)
-                tok_ts = tokens >= ts_base
-                ts = (tok_ts, prev, torch.where(tok_ts, torch.maximum(max_ts, tokens), max_ts))
-            t += 1
+        while t < cap_eff and _host_check(unsat.any()):
+            count("asr.step")
+            with span("asr.step"):
+                cand_val, cand_tok, lse, cache, anc = run_step(tokens, cache, anc, ts)
+                cand_lp = (cand_val - lse).reshape(B, K, KC)
+                total = sum_lp[..., None] + cand_lp  # (B, K, KC)
+                vals, idx = top_k(total.reshape(B, K * KC), POOL)
+                parent = idx // KC
+                tok = torch.gather(cand_tok.reshape(B, K * KC), 1, idx)
+                cand_out = torch.gather(
+                    out, 1, parent[..., None].expand(-1, -1, max_new_tokens)
+                )  # (B, POOL, max_new)
+                cand_out[:, :, t] = tok
+                sum_lp, tokens, new_parent, out, fin, unsat = _select(
+                    vals, tok, parent, cand_out, t, fin, unsat
+                )
+                # re-parent: the ancestry map absorbs the permutation
+                anc = torch.gather(anc, 1, new_parent[..., None].expand(-1, -1, cache_len))
+                if ts is not None:
+                    prev, prevprev, max_ts = (torch.gather(a, 1, new_parent) for a in ts)
+                    tok_ts = tokens >= ts_base
+                    ts = (tok_ts, prev, torch.where(tok_ts, torch.maximum(max_ts, tokens), max_ts))
+                t += 1
 
         # the store is top_k-sorted best-first; argmax kept for the
         # interface contract
@@ -421,6 +433,14 @@ def build_generate_xa(
         return GenerateResult(tokens=fin[0], lengths=fin[2], scores=fin[1], best=best)
 
     return generate
+
+
+def _host_check(flag: torch.Tensor) -> bool:
+    """The loop's one host sync a token: a 0-d bool tensor read on the
+    host, timed as an ``asr.sync`` span and counted."""
+    count("asr.sync")
+    with span("asr.sync"):
+        return bool(flag)
 
 
 def trim_tokens(tokens: np.ndarray, length: int) -> np.ndarray:

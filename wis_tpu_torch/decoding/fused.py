@@ -36,6 +36,7 @@ from wis_tpu_torch.decoding.detect import _detect_from_kv
 from wis_tpu_torch.models.whisper.config import WhisperConfig
 from wis_tpu_torch.models.whisper.model import cross_kv, encode
 from wis_tpu_torch.models.whisper.tokenizer import LANG_BASE, layout_for_vocab
+from wis_tpu_torch.utils.timing import span
 
 
 def build_asr_program(
@@ -81,28 +82,31 @@ def build_asr_program(
         prompt = ctl[:, :prompt_len].long()
         detect_mask = ctl[:, prompt_len]
         token_cap = int(ctl[0, prompt_len + 1])
-        if chunked:
-            step = CHUNK_LEN - STRIDE_LEFT - STRIDE_RIGHT
-            long_audio = audio_i16.float() / 32768.0
-            audio = torch.stack(
-                [long_audio[w * step: w * step + CHUNK_LEN] for w in range(batch)]
-            )
-            audio = F.pad(audio, (0, N_SAMPLES - CHUNK_LEN))
-        else:
-            audio = audio_i16.float() / 32768.0
-            if n_samples < N_SAMPLES:
-                audio = F.pad(audio, (0, N_SAMPLES - n_samples))
-        mel = log_mel(audio, n_mels=cfg.n_mels)  # (B, n_mels, 3000)
-        xa = encode(params, mel, cfg)
-        xa_kv = cross_kv(params, xa, cfg)
+        with span("asr.encode"):
+            if chunked:
+                step = CHUNK_LEN - STRIDE_LEFT - STRIDE_RIGHT
+                long_audio = audio_i16.float() / 32768.0
+                audio = torch.stack(
+                    [long_audio[w * step: w * step + CHUNK_LEN] for w in range(batch)]
+                )
+                audio = F.pad(audio, (0, N_SAMPLES - CHUNK_LEN))
+            else:
+                audio = audio_i16.float() / 32768.0
+                if n_samples < N_SAMPLES:
+                    audio = F.pad(audio, (0, N_SAMPLES - n_samples))
+            mel = log_mel(audio, n_mels=cfg.n_mels)  # (B, n_mels, 3000)
+            xa = encode(params, mel, cfg)
+            xa_kv = cross_kv(params, xa, cfg)
 
         if detect_language:
-            lang_idx, lang_prob = _detect_from_kv(params, xa_kv, cfg)
-            row_detects = detect_mask.bool()
-            prompt = prompt.clone()
-            prompt[:, 1] = torch.where(row_detects, LANG_BASE + lang_idx.long(), prompt[:, 1])
-            lang_idx = torch.where(row_detects, lang_idx, -1)
-            lang_prob = torch.where(row_detects, lang_prob, 0.0)
+            with span("asr.detect"):
+                lang_idx, lang_prob = _detect_from_kv(params, xa_kv, cfg)
+                row_detects = detect_mask.bool()
+                prompt = prompt.clone()
+                prompt[:, 1] = torch.where(row_detects, LANG_BASE + lang_idx.long(),
+                                           prompt[:, 1])
+                lang_idx = torch.where(row_detects, lang_idx, -1)
+                lang_prob = torch.where(row_detects, lang_prob, 0.0)
         else:
             lang_idx = torch.full((batch,), -1, dtype=torch.int32, device=device)
             lang_prob = torch.zeros((batch,), dtype=torch.float32, device=device)

@@ -30,6 +30,13 @@ chunk, worst slack to playback and total). Positions and history lengths advance
 chunk size per dispatch, so the host predicts them and nothing syncs per
 token.
 
+Under the caller's current timer (``utils/timing``; the TTS app's
+``tts_stream`` record) a stream records ``tts.prefill``, a ``tts.launch n=
+t=`` span around each chunk's queuing (codes, cache bucket) and a
+``tts.fetch`` span around each wait on its event, and counts
+``tts.in_flight``: at each launch, the streams the app has in flight
+(``STREAMS``).
+
 Constructor knobs are the JAX package's environment switches:
 ``quant`` (XTTS_QUANT: "int8" or "none"), ``fused`` (XTTS_FUSED: "auto" =
 the fused step on CUDA, "on" forces it — the CPU then runs the kernels'
@@ -82,8 +89,13 @@ from wis_tpu_torch.models.xtts.gpt import (
     run_decode_chunk_fused,
 )
 from wis_tpu_torch.models.xtts.hifigan import HiFiGANConfig, hifigan_forward, random_hifigan
+from wis_tpu_torch.utils.timing import count, level, span
 
 logger = logging.getLogger("wis_tpu_torch")
+
+#: the level (``utils/timing.inside``) of streams the server has in flight;
+#: each chunk's launch adds it to the ``tts.in_flight`` count
+STREAMS = "tts.streams"
 
 #: XTTS v2 supported language codes (reference xtts/main.py WillowStreamingInputs)
 XTTS_LANGUAGES = (
@@ -379,11 +391,12 @@ class XTTSModel:
         def t_for(need: int) -> int:
             return next((b for b in t_buckets if need <= b), full_t)
 
-        prefill = build_prefill(g, batch=1, cond_len=self.cfg.cond_len, text_len=bucket,
-                                max_len=max_len)
-        _, cache = prefill(self.gpt_params, torch.from_numpy(cond).to(dev, dtype),
-                           torch.from_numpy(text_pad[None]).to(dev))
-        speaker_dev = torch.from_numpy(speaker).to(dev, dtype)
+        with span("tts.prefill"):
+            prefill = build_prefill(g, batch=1, cond_len=self.cfg.cond_len, text_len=bucket,
+                                    max_len=max_len)
+            _, cache = prefill(self.gpt_params, torch.from_numpy(cond).to(dev, dtype),
+                               torch.from_numpy(text_pad[None]).to(dev))
+            speaker_dev = torch.from_numpy(speaker).to(dev, dtype)
 
         chunk = stream_chunk_size
         if first_chunk_size is None:
@@ -422,19 +435,26 @@ class XTTSModel:
         launched = 0
 
         def launch() -> _Pending:
+            """Queue the next chunk: its GPT step, vocoder and pack (a
+            ``tts.launch`` span with its codes and cache bucket)."""
             nonlocal launched
             c_i = sizes[launched]
             launched += 1
+            t_cache = (max(st["t_cur"], t_for(prefix_len + sum(sizes[:launched])))
+                       if fused else max_len)
+            with span("tts.launch", n=c_i, t=t_cache):
+                count("tts.in_flight", level(STREAMS))
+                return queue_chunk(c_i, t_cache)
+
+        def queue_chunk(c_i: int, t_cache: int) -> _Pending:
             gum = self._gumbel(gen, c_i)
             if fused:
-                need = prefix_len + sum(sizes[:launched])
-                if need > st["t_cur"]:
+                if t_cache > st["t_cur"]:
                     # grow the cache to the next bucket (bk = 1: one column
                     # per position)
-                    t_new = t_for(need)
-                    grow = (0, t_new - st["t_cur"])
+                    grow = (0, t_cache - st["t_cur"])
                     st["kc"], st["vc"] = F.pad(st["kc"], grow), F.pad(st["vc"], grow)
-                    st["t_cur"] = t_new
+                    st["t_cur"] = t_cache
                 step_fn = build_fused_gpt_step(g, bk=1, t_cache=st["t_cur"])
                 toks, latents, st["kc"], st["vc"], st["pos"], st["history"], st["hist_len"], done = (
                     run_decode_chunk_fused(
@@ -474,7 +494,8 @@ class XTTSModel:
             inflight.append(launch())
             for i in range(max_chunks):
                 c_i = sizes[i]
-                arr = inflight.popleft().fetch()
+                with span("tts.fetch"):
+                    arr = inflight.popleft().fetch()
                 valid = int(arr[-2])
                 done = bool(arr[-1])
                 if valid > 0:

@@ -23,6 +23,7 @@ wis_tpu_torch.server.tts_app [port]`` serves it on the card (``main``).
 from __future__ import annotations
 
 import asyncio
+import itertools
 import json
 import logging
 import os
@@ -34,15 +35,18 @@ import numpy as np
 
 from wis_tpu_torch.audio.ingest import load_audio, wav_stream_header
 from wis_tpu_torch.device import DeviceLike
-from wis_tpu_torch.models.xtts.model import XTTS_LANGUAGES, XTTSModel
+from wis_tpu_torch.models.xtts.model import STREAMS, XTTS_LANGUAGES, XTTSModel
 from wis_tpu_torch.server.reply import Body, Reply, app_key, read, send
 from wis_tpu_torch.server.sv import valid_speaker_name
 from wis_tpu_torch.settings import APISettings, get_api_settings
+from wis_tpu_torch.utils.timing import StageTimer, inside, span
 
 logger = logging.getLogger("wis_tpu_torch")
 
 #: the streamed responses' headers
 STREAM_HEADERS = {"Content-Type": "audio/wav", "Cache-Control": "public, max-age=31536000"}
+#: stream ids, monotonic across the process
+_stream_ids = itertools.count(1)
 
 
 def postprocess_int16(wav: np.ndarray) -> bytes:
@@ -181,41 +185,50 @@ async def stream_tts(model: XTTSModel, text: str, language: str, voice: Dict, pa
     as int16 bytes as the model emits it. A producer thread runs
     ``inference_stream_split`` behind a queue of 4 chunks; a consumer that
     stops early stops the producer at its next chunk. A fault in the model
-    is raised after the chunks before it."""
-    if add_wav_header:
-        yield wav_stream_header(sr=model.cfg.vocoder.sample_rate)
-    loop = asyncio.get_running_loop()
-    queue: asyncio.Queue = asyncio.Queue(maxsize=4)
-    stop = threading.Event()
+    is raised after the chunks before it.
 
-    def producer():
-        stream = model.inference_stream_split(
-            text,
-            language,
-            np.asarray(voice["gpt_cond_latent"], np.float32),
-            np.asarray(voice["speaker_embedding"], np.float32),
-            **params,
-        )
+    The producer thread leaves one ``tts_stream`` record (``utils/timing``)
+    under the stream's id: the model's ``tts.prefill``, ``tts.launch`` and
+    ``tts.fetch`` spans and a ``tts.handoff`` span around each chunk's put
+    (the event loop's latency and the consumer's backpressure)."""
+    with inside(STREAMS):
+        if add_wav_header:
+            yield wav_stream_header(sr=model.cfg.vocoder.sample_rate)
+        loop = asyncio.get_running_loop()
+        queue: asyncio.Queue = asyncio.Queue(maxsize=4)
+        stop = threading.Event()
+        stream_id = next(_stream_ids)
+
+        def producer():
+            with StageTimer("tts_stream", ids=[stream_id]):
+                stream = model.inference_stream_split(
+                    text,
+                    language,
+                    np.asarray(voice["gpt_cond_latent"], np.float32),
+                    np.asarray(voice["speaker_embedding"], np.float32),
+                    **params,
+                )
+                try:
+                    for chunk in stream:
+                        if stop.is_set():
+                            break
+                        with span("tts.handoff"):
+                            asyncio.run_coroutine_threadsafe(queue.put(chunk), loop).result()
+                finally:
+                    stream.close()
+                    asyncio.run_coroutine_threadsafe(queue.put(None), loop).result()
+
+        task = loop.run_in_executor(None, producer)
         try:
-            for chunk in stream:
-                if stop.is_set():
-                    break
-                asyncio.run_coroutine_threadsafe(queue.put(chunk), loop).result()
+            while (chunk := await queue.get()) is not None:
+                yield postprocess_int16(chunk)
         finally:
-            stream.close()
-            asyncio.run_coroutine_threadsafe(queue.put(None), loop).result()
-
-    task = loop.run_in_executor(None, producer)
-    try:
-        while (chunk := await queue.get()) is not None:
-            yield postprocess_int16(chunk)
-    finally:
-        stop.set()
-        while not task.done():  # a producer blocked on the full queue: make room
-            while not queue.empty():
-                queue.get_nowait()
-            await asyncio.sleep(0.01)
-    await task
+            stop.set()
+            while not task.done():  # a producer blocked on the full queue: make room
+                while not queue.empty():
+                    queue.get_nowait()
+                await asyncio.sleep(0.01)
+        await task
 
 
 # --------------------------------------------------------------------------- #
