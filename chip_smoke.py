@@ -1622,8 +1622,15 @@ def check_fused_gpt_step(torch, dev, cfg, packed, t_full):
     """The fused GPT step against its plain version at full XTTS width (30
     layers, D=1024, bk=1, int8) in the first cache bucket (256 positions),
     the 512 one and the full one (the buckets TTS_TEXT's stream runs), on
-    standard and trap inputs."""
+    standard and trap inputs; each case again with ``pos`` in device memory
+    (a 0-dim int32 tensor, as a replayed XTTS code passes it), held to the
+    plain version at the same tolerance and to the host-pos kernel bit for
+    bit."""
     from wis_tpu_torch.ops.fused_gpt import fused_gpt_step, fused_gpt_step_plain
+
+    def device_pos(cfg, packed, pos, **a):
+        return fused_gpt_step(cfg, packed, pos=torch.tensor(pos, dtype=torch.int32, device=dev),
+                              **a)
 
     rows = {}
     for t_pad, trap in ((256, False), (256, True), (512, False), (512, True),
@@ -1632,11 +1639,12 @@ def check_fused_gpt_step(torch, dev, cfg, packed, t_full):
         kc0, vc0 = inp["k_cache"], inp["v_cache"]
         args = dict(inp)
         run = {}
-        for name, fn in (("kernel", fused_gpt_step), ("plain", fused_gpt_step_plain)):
+        for name, fn in (("kernel", fused_gpt_step), ("plain", fused_gpt_step_plain),
+                         ("device pos", device_pos)):
             args["k_cache"], args["v_cache"] = kc0.clone(), vc0.clone()
             run[name] = fn(cfg, packed, **args)
         torch.cuda.synchronize()
-        (xk, kk, vk), (xp, kp, vp) = run["kernel"], run["plain"]
+        xp, kp, vp = run["plain"]
         pos = inp["pos"]
         other = torch.ones(t_pad, dtype=torch.bool, device=dev)
         other[pos] = False
@@ -1644,18 +1652,28 @@ def check_fused_gpt_step(torch, dev, cfg, packed, t_full):
         def rel(a, b):
             return float((a.float() - b.float()).norm() / b.float().norm())
 
-        err = float((xk - xp).abs().max())
-        rels = (rel(xk, xp), rel(kk[..., pos], kp[..., pos]), rel(vk[..., pos], vp[..., pos]))
-        kept = torch.equal(kk[..., other], kc0[..., other]) and torch.equal(vk[..., other], vc0[..., other])
-        case = (f"fused_gpt_step L={cfg.n_layer} D={cfg.d_model} bk=1 t_pad={t_pad} pos={pos} "
-                f"int8{' trap' if trap else ''}")
-        print(f"{case}: x_out max|Δ| {err:.3e}, ‖Δ‖/‖plain‖ x_out {rels[0]:.3e}, "
-              f"written K {rels[1]:.3e}, V {rels[2]:.3e} (tolerance {STEP_REL_NORM:.0e}); "
-              f"other cache columns bit-identical: {kept}")
-        if not (max(rels) <= STEP_REL_NORM and kept and bool(torch.isfinite(xk).all())):
-            raise AssertionError(f"{case}: kernel disagrees with plain")
+        for name in ("kernel", "device pos"):
+            xk, kk, vk = run[name]
+            err = float((xk - xp).abs().max())
+            rels = (rel(xk, xp), rel(kk[..., pos], kp[..., pos]),
+                    rel(vk[..., pos], vp[..., pos]))
+            kept = (torch.equal(kk[..., other], kc0[..., other])
+                    and torch.equal(vk[..., other], vc0[..., other]))
+            case = (f"fused_gpt_step L={cfg.n_layer} D={cfg.d_model} bk=1 t_pad={t_pad} "
+                    f"pos={pos}{' (device)' if name == 'device pos' else ''} "
+                    f"int8{' trap' if trap else ''}")
+            same = all(torch.equal(a, b) for a, b in zip(run[name], run["kernel"]))
+            print(f"{case}: x_out max|Δ| {err:.3e}, ‖Δ‖/‖plain‖ x_out {rels[0]:.3e}, "
+                  f"written K {rels[1]:.3e}, V {rels[2]:.3e} (tolerance {STEP_REL_NORM:.0e}); "
+                  f"other cache columns bit-identical: {kept}; equal to the host-pos kernel: "
+                  f"{same}")
+            if not (max(rels) <= STEP_REL_NORM and kept and same
+                    and bool(torch.isfinite(xk).all())):
+                raise AssertionError(f"{case}: kernel disagrees with plain")
+        err = float((run["kernel"][0] - xp).abs().max())
         if trap:
             continue
+        case = f"fused_gpt_step L={cfg.n_layer} D={cfg.d_model} bk=1 t_pad={t_pad} pos={pos} int8"
         args["k_cache"], args["v_cache"] = kc0.clone(), vc0.clone()
         ms = _median_ms(lambda: fused_gpt_step(cfg, packed, **args))
         plain_ms = _median_ms(lambda: fused_gpt_step_plain(cfg, packed, **args),
@@ -1677,6 +1695,8 @@ def lib_gpt_step(torch, lib, check, cfg, packed, inp):
     bkt = inp["k_cache"].shape[-1]
     ws = torch.empty(lib.wis_fused_gpt_workspace_bytes(D, bk), dtype=torch.uint8, device=dev)
     x = torch.empty_like(inp["x_emb"])
+    # a library that takes a device position (its last argument) gets none
+    pos_dev = (None,) * (len(lib.wis_fused_gpt_step.argtypes) - 16)
 
     def fn():
         x.copy_(inp["x_emb"])
@@ -1684,7 +1704,7 @@ def lib_gpt_step(torch, lib, check, cfg, packed, inp):
             packed.w.data_ptr(), packed.s.data_ptr(), packed.b.data_ptr(), packed.ln.data_ptr(),
             x.data_ptr(), inp["k_cache"].data_ptr(), inp["v_cache"].data_ptr(),
             inp["sel"].data_ptr(), inp["pos"], ws.data_ptr(), L, D, cfg.n_head, bk, bkt // bk,
-            torch.cuda.current_stream(dev).cuda_stream), "fused_gpt_step")
+            torch.cuda.current_stream(dev).cuda_stream, *pos_dev), "fused_gpt_step")
         return x
 
     return fn

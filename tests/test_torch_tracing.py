@@ -222,6 +222,37 @@ def test_tts_stream_record(tmp_path):
     # one stream in flight at each launch
     assert rec.counts["tts.in_flight"] == len(launches)
     assert timing.level(tm.STREAMS) == 0
+    # on the CPU every code is launched eagerly: no slot, no graph
+    assert rec.counts["tts.eager_codes"] == 40
+    assert "tts.graph_codes" not in rec.counts and "tts.graph_captures" not in rec.counts
+
+
+def test_graph_share_reads_the_code_counts():
+    """``benchmark/metrics/tts.graph_share.tts.py``: the codes replayed from
+    a graph among every code of the window's ``tts_stream`` records;
+    nothing where no record counts codes (a program without the counts)."""
+    from types import SimpleNamespace as NS
+
+    from benchmark import run as bench_run
+
+    read = bench_run.reader("tts.graph_share.tts")
+
+    def rec(t0, counts):
+        return NS(kind="tts_stream", ids=[1], t0=t0, t1=t0 + 1, spans=[], counts=counts)
+
+    window = NS(t0=100.0, t_stamps=200.0, trace=None, config={})
+    records = [rec(110, {"tts.graph_codes": 190, "tts.eager_codes": 10}),
+               rec(120, {"tts.graph_codes": 100, "tts.graph_captures": 3}),
+               rec(50, {"tts.eager_codes": 1000}),  # before the window
+               rec(199.5, {"tts.eager_codes": 1000})]  # ends in the traced slice
+    orig = timing.recent
+    try:
+        timing.recent = lambda: records
+        assert read(window) == pytest.approx(100.0 * 290 / 300)
+        timing.recent = lambda: [rec(110, {"tts.in_flight": 2})]
+        assert read(window) is None
+    finally:
+        timing.recent = orig
 
 
 def test_ring_stays_at_its_bound():

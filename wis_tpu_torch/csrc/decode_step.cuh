@@ -449,6 +449,7 @@ struct SelfArgs {
   const float* sel;      // (bk, bk·T) f32
   __nv_bfloat16* out;    // (bk, D)
   int bk, D, t_cache, pos;
+  const int* pos_dev;    // pos in device memory (a step replayed from a CUDA graph), or null
   int tt;                // time steps per tile
   float scale;
 };
@@ -473,9 +474,10 @@ size_t self_smem(int bk) {
 // The splits then merge in order z = 0, 1, ... with the self column q·k
 // (f32) through distributed shared memory, each block storing its share:
 // out = (Σ_z P·V_z·e^(m_z−M) + e_self·v) / (Σ_z l_z·e^(m_z−M) + e_self).
-// The split 0 block writes this step's K/V columns at pos·bk + r. Columns
-// no row selects are never used (a 16-byte load carries them in only
-// beside a selected one).
+// The split 0 block writes this step's K/V columns at pos·bk + r; where
+// `pos_dev` is set it reads pos there, and writes only a pos inside the
+// cache. Columns no row selects are never used (a 16-byte load carries
+// them in only beside a selected one).
 __global__ void __launch_bounds__(kThreads) self_attention_kernel(SelfArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kItems = kMaxRows * kHeadDim / kThreads;  // (row, dim) per thread
@@ -731,10 +733,11 @@ __global__ void __launch_bounds__(kThreads) self_attention_kernel(SelfArgs a) {
   // split 0 writes this step's K/V columns pos·bk + r last, where no
   // barrier waits for the stores: the bk columns of a cache row are
   // adjacent, so consecutive threads store consecutive columns
-  if (z == 0) {
+  const int pos = a.pos_dev ? *a.pos_dev : a.pos;
+  if (z == 0 && pos >= 0 && pos < a.t_cache) {
     for (int i = tid; i < bk * kHeadDim; i += kThreads) {
       const int d = i / bk, r = i - d * bk;
-      const size_t col = static_cast<size_t>(h * kHeadDim + d) * bkt + a.pos * bk + r;
+      const size_t col = static_cast<size_t>(h * kHeadDim + d) * bkt + pos * bk + r;
       a.kc[col] = __float2bfloat16_rn(k_self[r * kHeadDim + d]);
       a.vc[col] = __float2bfloat16_rn(v_self[r * kHeadDim + d]);
     }

@@ -80,13 +80,16 @@ extern "C" long long wis_fused_gpt_workspace_bytes(int D, int bk) {
 // x_out on return; k/v_cache (L, D, bk·T) bf16 are written in place at
 // columns pos·bk + row; sel (bk, bk·T) f32. w (L, 12, D, D) int8, s/b
 // (L, 12, D) f32, ln (L, 4, D) f32. Head dim 64, D a multiple of 64,
-// bk ≤ 32, bk·T a multiple of 8; the wrapper checks.
+// bk ≤ 32, bk·T a multiple of 8; the wrapper checks. With `pos_dev` (one
+// int in device memory) the kernels read pos there when they run, and
+// `pos` is not used: a CUDA graph captured once then serves every
+// position, its caller keeping pos inside the cache.
 extern "C" int wis_fused_gpt_step(const void* w, const void* s, const void* b, const void* ln,
                                   void* x, void* k_cache, void* v_cache, const void* sel,
                                   int pos, void* ws, int L, int D, int H, int bk, int t_cache,
-                                  void* stream) {
-  if (D != H * kHeadDim || D % 64 || bk < 1 || bk > kMaxRows || pos < 0 || pos >= t_cache ||
-      bk * t_cache % 8)
+                                  void* stream, const void* pos_dev) {
+  if (D != H * kHeadDim || D % 64 || bk < 1 || bk > kMaxRows ||
+      (!pos_dev && (pos < 0 || pos >= t_cache)) || bk * t_cache % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const GptWorkspace wk = carve_gpt(ws, D, bk);
@@ -122,6 +125,7 @@ extern "C" int wis_fused_gpt_step(const void* w, const void* s, const void* b, c
     sa.qkv = wk.qkv; sa.kc = kcl; sa.vc = vcl; sa.sel = static_cast<const float*>(sel);
     sa.out = wk.attn;
     sa.bk = bk; sa.D = D; sa.t_cache = t_cache; sa.pos = pos; sa.scale = scale;
+    sa.pos_dev = static_cast<const int*>(pos_dev);
     e = launch_self(sa, H, st);
     if (e != cudaSuccess) break;
 

@@ -19,23 +19,34 @@ The JAX package dispatches up to ``depth`` chunks ahead and starts their
 device-to-host copies asynchronously. Here each chunk's packed result is
 copied into a pinned host buffer behind one CUDA event, and chunks queued
 past a stop are dropped. Queuing blocks on the card once its launch queue
-is full (it holds a few tokens' kernels), so a chunk queued behind
-another holds that one's fetch, and the listener, until it is itself
-nearly done. Each chunk is therefore yielded before the queue is topped up
-to ``pipeline_depth`` chunks, and the default depth is 1: each chunk
-reaches the listener as soon as it is done, and the card idles only
-while the host fetches one chunk and queues the next (about 1% of a
-stream on an H100; ``chip_smoke.py`` compares depths 1-3 by second
-chunk, worst slack to playback and total). Positions and history lengths advance by exactly the
-chunk size per dispatch, so the host predicts them and nothing syncs per
-token.
+is full, so a chunk queued behind another holds that one's fetch, and
+the listener, until it is itself nearly done. Each chunk is therefore
+yielded before the queue is topped up to ``pipeline_depth`` chunks, and
+the default depth is 1: each chunk reaches the listener as soon as it is
+done, and the card idles only while the host fetches one chunk and
+queues the next (``chip_smoke.py`` compares depths 1-3 by second chunk,
+worst slack to playback and total). Positions and history lengths
+advance by exactly the chunk size per dispatch, so the host predicts
+them and nothing syncs per token.
+
+The host loop: on the card, with the fused step and without the fused
+head, a stream takes a slot of the model's pool (``slots.py``) at its
+start and gives it back when it ends. The slot holds the stream's state
+in static buffers, and one CUDA graph per cache bucket captured from
+``gpt.decode_code`` (the embedding, the fused step, the sampling
+epilogue and the history update, every per-code number read from device
+scalars): each code is one replay, so the card, not the host, sets the
+pace of a chunk. Elsewhere (the CPU, ``fused="off"``, the fused head)
+each code is launched eagerly, the same ``decode_code`` on the fused
+path.
 
 Under the caller's current timer (``utils/timing``; the TTS app's
 ``tts_stream`` record) a stream records ``tts.prefill``, a ``tts.launch n=
 t=`` span around each chunk's queuing (codes, cache bucket) and a
 ``tts.fetch`` span around each wait on its event, and counts
 ``tts.in_flight``: at each launch, the streams the app has in flight
-(``STREAMS``).
+(``STREAMS``); ``tts.graph_codes`` and ``tts.eager_codes``: the codes
+replayed from a graph and those launched eagerly; ``tts.graph_captures``.
 
 Constructor knobs are the JAX package's environment switches:
 ``quant`` (XTTS_QUANT: "int8" or "none"), ``fused`` (XTTS_FUSED: "auto" =
@@ -89,6 +100,7 @@ from wis_tpu_torch.models.xtts.gpt import (
     run_decode_chunk_fused,
 )
 from wis_tpu_torch.models.xtts.hifigan import HiFiGANConfig, hifigan_forward, random_hifigan
+from wis_tpu_torch.models.xtts.slots import CodeSlots
 from wis_tpu_torch.utils.timing import count, level, span
 
 logger = logging.getLogger("wis_tpu_torch")
@@ -199,6 +211,10 @@ class XTTSModel:
 
             self.gpt_packed = pack_gpt(self.gpt_params, self.cfg.gpt)
             self.gpt_head_packed = pack_head(self.gpt_params, self.cfg.gpt, dtype)
+        # on the card, each code of a stream is a replay of its slot's graph
+        self._slots = (CodeSlots(self.cfg.gpt, self.device, self.gpt_params["text_emb"].dtype)
+                       if self._fused and not self.fused_head and self.device.type == "cuda"
+                       else None)
 
     # ------------------------------------------------------------------ #
     def _load_checkpoint(self, model_dir):
@@ -461,7 +477,7 @@ class XTTSModel:
                         self.gpt_params, self.gpt_packed, step_fn, st["last"], st["kc"],
                         st["vc"], st["pos"], st["history"], st["hist_len"], gum, *knobs,
                         head_packed=self.gpt_head_packed, cfg=g, chunk=c_i, batch=1,
-                        head_fn=head_fn,
+                        head_fn=head_fn, slot=slot,
                     )
                 )
             else:
@@ -487,6 +503,7 @@ class XTTSModel:
         prev_wav_tail: Optional[np.ndarray] = None
         emitted = 0
         inflight: "collections.deque[_Pending]" = collections.deque()
+        slot = self._slots.acquire() if self._slots is not None else None
         try:
             # a chunk queued behind another would hold its fetch until it is
             # nearly done (the card's launch queue holds a few tokens), so
@@ -526,8 +543,11 @@ class XTTSModel:
                 while launched < max_chunks and len(inflight) < self.pipeline_depth:
                     inflight.append(launch())
         finally:
-            # chunks queued past a stop are dropped with their buffers
+            # chunks queued past a stop are dropped with their buffers; the
+            # slot's queued work runs before the next stream's in it
             inflight.clear()
+            if slot is not None:
+                self._slots.release(slot)
 
     def inference_stream_split(self, text: str, language: str, *args,
                                enable_text_splitting: bool = False, **kwargs

@@ -113,7 +113,7 @@ def kernels() -> ctypes.CDLL:
             lib.wis_fused_logits_topk.restype = i
             lib.wis_fused_gpt_workspace_bytes.argtypes = [i, i]
             lib.wis_fused_gpt_workspace_bytes.restype = ll
-            lib.wis_fused_gpt_step.argtypes = [p] * 8 + [i, p] + [i] * 5 + [p]
+            lib.wis_fused_gpt_step.argtypes = [p] * 8 + [i, p] + [i] * 5 + [p, p]
             lib.wis_fused_gpt_step.restype = i
             lib.wis_fused_gpt_head.argtypes = [p] * 11 + [i] * 4 + [p]
             lib.wis_fused_gpt_head.restype = i

@@ -25,6 +25,13 @@ launch per step in ``fused_gpt_step.launches``; it takes the plain
 version, ``fused_gpt_step_plain`` (line for line the JAX oracle
 ``fused_gpt_step_reference``), only for tensors on the CPU. Not ported:
 the VMEM gate ``fused_gpt_vmem_bytes``.
+
+``pos``, the cache column the step writes, is a host int or a 0-dim int32
+tensor on the card, which the kernels read when they run: one CUDA graph
+captured from the step then serves every position (``models/xtts/
+slots.py``). A step launched while its stream is being captured is
+counted in ``fused_gpt_step.captured`` instead: the graph's steps, which
+whoever replays it adds to ``launches`` once per replay.
 """
 
 from __future__ import annotations
@@ -101,10 +108,11 @@ def pack_gpt(params: dict, cfg: GPTConfig) -> PackedGPT:
 
 
 def fused_gpt_step_plain(cfg: GPTConfig, packed: PackedGPT, x_emb, k_cache, v_cache, sel,
-                         pos: int):
+                         pos):
     """The step in plain PyTorch: x_emb (bk, D) f32; caches (L, D, bk·T)
     time-major, written IN PLACE at columns pos·bk + row; sel (bk, bk·T)
     f32. → (x_out (bk, D) f32, k_cache, v_cache)."""
+    pos = int(pos)
     D, H, L = cfg.d_model, cfg.n_head, cfg.n_layer
     Dh = D // H
     bk = x_emb.shape[0]
@@ -143,14 +151,16 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"fused_gpt_step: {msg}")
 
 
-def fused_gpt_step(cfg: GPTConfig, packed: PackedGPT, x_emb, k_cache, v_cache, sel, pos: int):
+def fused_gpt_step(cfg: GPTConfig, packed: PackedGPT, x_emb, k_cache, v_cache, sel, pos):
     """One audio token through all layers; arguments and result as
     ``fused_gpt_step_plain``. The caches are updated in place at columns
     pos·bk + row (the TPU kernel aliases them the same way).
 
     CUDA tensors run ``csrc/fused_gpt.cu`` (bf16 caches, int8 weights, head
     dim 64, D a multiple of 64, bk ≤ 32, bk·T a multiple of 8); CPU tensors run
-    ``fused_gpt_step_plain``."""
+    ``fused_gpt_step_plain``. A device ``pos`` (0-dim int32 on the card) is
+    read by the kernels: its value is the caller's to keep inside the
+    cache, and the kernels write no column for one outside it."""
     if x_emb.device.type == "cpu":
         return fused_gpt_step_plain(cfg, packed, x_emb, k_cache, v_cache, sel, pos)
     _check(x_emb.device.type == "cuda", f"unsupported device {x_emb.device}")
@@ -163,7 +173,15 @@ def fused_gpt_step(cfg: GPTConfig, packed: PackedGPT, x_emb, k_cache, v_cache, s
            f"x_emb must be f32 (bk, {D}), got {x_emb.dtype} {tuple(x_emb.shape)}")
     _check(1 <= bk <= MAX_ROWS, f"bk={bk} must be 1..{MAX_ROWS}")
     bkt = k_cache.shape[-1]
-    _check(bkt % bk == 0 and 0 <= pos < bkt // bk, f"pos {pos} outside the cache")
+    # a device pos is never formatted or compared here: either would wait
+    # for the card, which a stream being captured must not
+    on_device = isinstance(pos, torch.Tensor)
+    if on_device:
+        _check(pos.shape == () and pos.dtype == torch.int32 and pos.device == dev,
+               f"a device pos must be a 0-dim int32 tensor on {dev}")
+        _check(bkt % bk == 0, f"cache width {bkt} is not a multiple of bk={bk}")
+    else:
+        _check(bkt % bk == 0 and 0 <= pos < bkt // bk, f"pos {pos} outside the cache")
     _check(bkt % 8 == 0, f"cache width {bkt} is not a multiple of 8")
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         _check(t.shape == (L, D, bkt) and t.dtype == torch.bfloat16,
@@ -189,15 +207,20 @@ def fused_gpt_step(cfg: GPTConfig, packed: PackedGPT, x_emb, k_cache, v_cache, s
         rc = lib.wis_fused_gpt_step(
             packed.w.data_ptr(), packed.s.data_ptr(), packed.b.data_ptr(),
             packed.ln.data_ptr(), x.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            sel.data_ptr(), int(pos), ws.data_ptr(), L, D, H, bk, bkt // bk,
-            torch.cuda.current_stream(dev).cuda_stream,
+            sel.data_ptr(), 0 if on_device else int(pos), ws.data_ptr(), L, D, H, bk,
+            bkt // bk, torch.cuda.current_stream(dev).cuda_stream,
+            pos.data_ptr() if on_device else None,
         )
     _build.check(rc, "fused_gpt_step")
-    fused_gpt_step.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        fused_gpt_step.captured += 1
+    else:
+        fused_gpt_step.launches += 1
     return x, k_cache, v_cache
 
 
 fused_gpt_step.launches = 0
+fused_gpt_step.captured = 0
 
 
 def build_fused_gpt_step(cfg: GPTConfig, *, bk: int, t_cache: int):
@@ -208,13 +231,16 @@ def build_fused_gpt_step(cfg: GPTConfig, *, bk: int, t_cache: int):
     t·bk + row, heads merged into D), updated IN PLACE at columns
     pos·bk + row. sel (bk, bk·t_cache) f32: 1 where a flat column belongs to
     the query row's history (t < pos); the step's own K/V join as an
-    explicit self column."""
+    explicit self column. pos: a host int, or a device one
+    (``fused_gpt_step``)."""
 
     def step(packed, x_emb, k_cache, v_cache, sel, pos):
         if k_cache.shape[-1] != bk * t_cache:
             raise ValueError(
                 f"cache width {k_cache.shape[-1]} does not match bk={bk}, t_cache={t_cache}"
             )
-        return fused_gpt_step(cfg, packed, x_emb, k_cache, v_cache, sel, int(pos))
+        if not isinstance(pos, torch.Tensor):
+            pos = int(pos)
+        return fused_gpt_step(cfg, packed, x_emb, k_cache, v_cache, sel, pos)
 
     return step
