@@ -188,6 +188,18 @@ exits non-zero without printing a result:
    vocabulary-sharded heads' ids equal to the whole head's; then each
    kernel on that path held to its plain version at a rank's shapes and
    timed (``check_shard_kernels``).
+17. the grouped expert kernel of Uni-MoE-2.0-Omni (``ops/moe_experts``,
+   ``csrc/moe_experts.cu``, new: no TPU kernel) at d 3584 and width 18944
+   over 4 experts, 1-16 tokens with two experts each, one, uneven and
+   null-heavy routing, and the prefill's 1792 tokens: each held to its
+   plain per-expert loop, timed beside it and its bound, two launches a
+   call.
+18. Uni-MoE-2.0-Omni's main path at its published widths (seeded weights
+   in the registry, 53.6 GB): eight clips through ``WhisperEngine.
+   transcribe_omni`` at cap 128 after a warm-up dispatch that captures
+   the bucket's step graph; the grouped kernel's launches counted over
+   that dispatch alone (the prefill's eager launches and each step graph
+   replay's tally), 2 a layer of every forward.
 
 Each phase prints its seconds as it ends. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3997,6 +4009,132 @@ def check_mesh(torch, dev, card):
     return report, rows
 
 
+#: phase 17's cases of the grouped expert kernel at Uni-MoE-2.0-Omni's
+#: widths: (tokens, routing) — two experts a token, one, uneven (most rows
+#: on expert 0, expert 3 idle), null-heavy (three slots in four compute
+#: nothing), the prefill's many rows
+MOE_CASES = ((1, "two"), (3, "one"), (8, "two"), (8, "uneven"), (16, "null_heavy"),
+             (16, "two"), (1792, "two"))
+#: Uni-MoE-2.0-Omni's expert layer: d, dynamic width, dynamic experts
+MOE_D, MOE_F, MOE_E = 3584, 18944, 4
+
+
+def moe_codes(torch, dev, n, routing, seed):
+    """(codes (n, 2), weights (n, 2)) of a routing: codes 0-3 a dynamic
+    expert, 4 the null one, 5 a slot not taken."""
+    rng = np.random.default_rng(seed)
+    codes = np.stack([rng.permutation(MOE_E)[:2] for _ in range(n)])
+    if routing == "one":
+        codes[:, 1] = 5
+    elif routing == "uneven":
+        codes[:, 0] = 0
+        codes[:, 1] = np.where(rng.random(n) < 0.75, 1, 5)
+    elif routing == "null_heavy":
+        off = rng.random((n, 2)) < 0.75
+        codes = np.where(off, rng.choice([4, 5], size=(n, 2)), codes)
+    wts = rng.uniform(0.1, 0.7, size=(n, 2)).astype(np.float32)
+    return (torch.from_numpy(codes).to(dev), torch.from_numpy(wts).to(dev))
+
+
+def moe_bound(n_tokens, codes):
+    """The grouped product's least ms: the touched experts' weights read
+    once with each routed row's token read and its row written (bytes), or
+    its products (operations) — ``benchmark/work_omni.moe_experts_ms``."""
+    routed = codes[codes < MOE_E]
+    touched = len(set(routed.tolist()))
+    rows = int(routed.numel())
+    return _bound(touched * 3 * MOE_D * MOE_F * 2 + rows * MOE_D * (2 + 4),
+                  rows * 6 * MOE_D * MOE_F, BF16_FLOPS)
+
+
+def check_moe_experts(torch, dev):
+    """Phase 17: the grouped expert kernel (``ops/moe_experts``, new: no
+    TPU kernel) at Uni-MoE-2.0-Omni's widths against its plain per-expert
+    loop, each case's relative L2 distance under 4e-3 and every element
+    within 2e-2 of the plain result's largest magnitude (both sum float32
+    products of the same bf16 inputs; the activation, rounded to bf16
+    between the products, may land one ulp apart); timed (the permutation
+    and both launches, graph-replayed) beside the plain loop and its bound;
+    the launches counted (2 a call)."""
+    from wis_tpu_torch.ops.moe_experts import grouped_swiglu, grouped_swiglu_plain
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    wg = (torch.randn(MOE_E, MOE_F, MOE_D, generator=g, device=dev) * MOE_D ** -0.5).bfloat16()
+    wu = (torch.randn(MOE_E, MOE_F, MOE_D, generator=g, device=dev) * MOE_D ** -0.5).bfloat16()
+    wd = (torch.randn(MOE_E, MOE_D, MOE_F, generator=g, device=dev) * MOE_F ** -0.5).bfloat16()
+    rows = {}
+    for i, (n, routing) in enumerate(MOE_CASES):
+        h = torch.randn(n, MOE_D, generator=g, device=dev).bfloat16()
+        codes, wts = moe_codes(torch, dev, n, routing, 1700 + i)
+        before = grouped_swiglu.launches
+        got = grouped_swiglu(h, wg, wu, wd, codes, wts)
+        launched = grouped_swiglu.launches - before
+        want = grouped_swiglu_plain(h, wg, wu, wd, codes, wts)
+        torch.cuda.synchronize()
+        rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not (rel < 4e-3 and err <= 2e-2 * scale and launched == 2):
+            raise AssertionError(f"grouped_swiglu {n} tokens, {routing}: rel {rel:.2e}, "
+                                 f"max|Δ| {err:.3e} of {scale:.3e}, {launched} launches")
+        ms = _median_ms(lambda: grouped_swiglu(h, wg, wu, wd, codes, wts), reps=10, replays=7)
+        plain_ms = _event_ms(torch, lambda: grouped_swiglu_plain(h, wg, wu, wd, codes, wts))
+        bound_ms, bound_by = moe_bound(n, codes)
+        print(f"grouped_swiglu {n} tokens, {routing} ({int((codes < MOE_E).sum())} rows): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), {100 * bound_ms / ms:.1f}% of it; rel {rel:.2e}, "
+              f"max|Δ| {err:.3e} of {scale:.3e}", flush=True)
+        rows[(n, routing)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, library_ms=None, launches=launched)
+    del wg, wu, wd
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_omni_dispatch(torch, dev):
+    """Phase 18: one dispatch of eight clips at cap 128 through the
+    engine's omni path, the grouped kernel's launches counted over it: 2 a
+    layer in the prefill and in each decode step the slot's graph replays
+    → {launches, forwards, dispatch_ms, tokens}."""
+    from wis_tpu_torch.models.unimoe.config import OMNI_NAME
+    from wis_tpu_torch.ops.moe_experts import grouped_swiglu
+    from wis_tpu_torch.runtime.engine import WhisperEngine
+    from wis_tpu_torch.runtime.residency import ModelRegistry
+    from wis_tpu_torch.settings import APISettings
+    from wis_tpu_torch.utils import timing
+
+    settings = APISettings(batch_buckets=["8"], max_decode_tokens=128,
+                           hbm_budget_bytes=80_000_000_000)
+    engine = WhisperEngine(ModelRegistry(settings, dev))
+    t0 = time.perf_counter()
+    loaded = engine.registry.get(OMNI_NAME)
+    torch.cuda.synchronize()
+    print(f"{OMNI_NAME} seeded bf16 weights on {dev}: {loaded.param_bytes / 2**30:.3f} GiB "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    clips = [_audio_i16(1500 + 500 * i, 1800 + i) for i in range(8)]
+    engine.transcribe_omni([(a, 4) for a in clips], OMNI_NAME)  # captures the step graph
+    before = grouped_swiglu.launches
+    t0 = time.perf_counter()
+    out = engine.transcribe_omni([(a, 128) for a in clips], OMNI_NAME)
+    ms = (time.perf_counter() - t0) * 1e3
+    launched = grouped_swiglu.launches - before
+    rec = [t for t in timing.recent() if t.kind == "omni_call"][-1]
+    steps = sum(s.name == "omni.step" for s in rec.spans)
+    # the last step's loop turn ends before a replay when it reaches the cap
+    replays = steps - 1 if steps == 128 else steps
+    layers = loaded.cfg.num_hidden_layers
+    tokens = [len(r.tokens) for r in out]
+    print(f"omni dispatch: 8 clips, cap 128, {ms:.1f} ms, reply lengths {tokens}, "
+          f"{steps} steps ({replays} graph replays), grouped_swiglu launches {launched}",
+          flush=True)
+    if launched != 2 * layers * (1 + replays) or not all(tokens):
+        raise AssertionError(f"omni dispatch: {launched} grouped launches for {replays} replays "
+                             f"of {layers} layers, replies {tokens}")
+    del engine, loaded
+    torch.cuda.empty_cache()
+    return dict(launches=launched, forwards=1 + replays, dispatch_ms=ms, tokens=tokens)
+
+
 class PhaseClock:
     """Prints each phase's seconds as it ends."""
 
@@ -4170,6 +4308,10 @@ def main() -> int:
     clock.done(15)
     mesh_report, shard = check_mesh(torch, dev, smi)
     clock.done(16)
+    moe = check_moe_experts(torch, dev)
+    clock.done(17)
+    omni = check_omni_dispatch(torch, dev)
+    clock.done(18)
 
     rows = [
         dict(name="layer_norm", source="wis_tpu_torch/csrc/layernorm.cu",
@@ -4211,6 +4353,13 @@ def main() -> int:
              source="wis_tpu_torch/csrc/fused_logits.cu",
              replaces="wis_tpu/ops/fused_logits.py:48", **shard["fused_logits_topk"]),
     ]
+    # phase 17: new, no TPU kernel; 8 tokens on two experts each, a decode
+    # step of the omni cell's largest batch
+    moe_row = dict(name="grouped_swiglu(8 tokens, two experts)",
+                   source="wis_tpu_torch/csrc/moe_experts.cu", replaces="none (new)",
+                   route="cuda", **moe[(8, "two")])
+    # launches of phase 18's dispatch (8 clips at cap 128), not of the call
+    moe_row["launches"] = omni["launches"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the whisper rows and int8_matmul count the fused ASR requests (the
@@ -4232,6 +4381,7 @@ def main() -> int:
                  mesh_report["ranks"][0]["vocab_head"]["large-v3"]["launches"]["fused_logits_topk"]]
     for row, n in zip(rows, launches):
         row.update(route="cuda", launches=n)
+    rows.append(moe_row)
     print(json.dumps({"kernels": [{key: row[key] for key in keys} for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

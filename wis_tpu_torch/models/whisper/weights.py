@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -174,6 +174,7 @@ def params_from_hf(
     cfg: WhisperConfig,
     dtype: torch.dtype = torch.bfloat16,
     device: DeviceLike = "cpu",
+    parts: Tuple[str, ...] = ("encoder", "decoder"),
 ) -> Dict:
     """Convert HF ``WhisperForConditionalGeneration`` tensors (torch Linear
     layout: weight (out, in); on any device) into the stacked-layer tree, leaf for leaf the
@@ -182,7 +183,9 @@ def params_from_hf(
     (k, in, out), Linear weights transposed, the ``model.`` prefix
     stripped. Each tensor moves to ``device`` in the checkpoint's dtype and
     is rounded there (to nearest even, through f32, as XLA's convert does),
-    so on the card large-v2's 1.55 B parameters never round on the host."""
+    so on the card large-v2's 1.55 B parameters never round on the host.
+    ``parts`` names the halves converted (an audio tower has only the
+    encoder's tensors)."""
     device = torch.device(device)
     t = {k.removeprefix("model."): v for k, v in tensors.items()}
     f32 = torch.float32
@@ -238,23 +241,25 @@ def params_from_hf(
         return {"w": leaf(f"{name}.weight").permute(2, 1, 0).contiguous(),
                 "b": leaf(f"{name}.bias")}
 
-    return {
-        "encoder": {
+    out = {}
+    if "encoder" in parts:
+        out["encoder"] = {
             "conv1": conv("encoder.conv1"),
             "conv2": conv("encoder.conv2"),
             "pos": leaf("encoder.embed_positions.weight", f32),
             "blocks": blocks("encoder", cfg.n_audio_layer, cross=False),
             "ln_post": {"g": leaf("encoder.layer_norm.weight", f32),
                         "b": leaf("encoder.layer_norm.bias", f32)},
-        },
-        "decoder": {
+        }
+    if "decoder" in parts:
+        out["decoder"] = {
             "tok_emb": leaf("decoder.embed_tokens.weight"),
             "pos": leaf("decoder.embed_positions.weight"),
             "blocks": blocks("decoder", cfg.n_text_layer, cross=True),
             "ln": {"g": leaf("decoder.layer_norm.weight", f32),
                    "b": leaf("decoder.layer_norm.bias", f32)},
-        },
-    }
+        }
+    return out
 
 
 def load_or_init_params(

@@ -125,6 +125,12 @@ def kernels() -> ctypes.CDLL:
             lib.wis_int8_matmul.restype = i
             lib.wis_ancestry_attention.argtypes = [p] * 4 + [i] * 5 + [f, p, p]
             lib.wis_ancestry_attention.restype = i
+            lib.wis_moe_down_splits.argtypes = [i, i]
+            lib.wis_moe_down_splits.restype = i
+            lib.wis_moe_gate_up.argtypes = [p] * 7 + [i] * 5 + [p]
+            lib.wis_moe_gate_up.restype = i
+            lib.wis_moe_down.argtypes = [p] * 7 + [i] * 6 + [p]
+            lib.wis_moe_down.restype = i
             _lib = lib
         return _lib
 

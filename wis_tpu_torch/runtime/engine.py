@@ -38,6 +38,14 @@ dispatch the program's ``asr.encode``, ``asr.detect``, ``asr.prefill``,
 ``asr.decode``, ``asr.step``, ``asr.sync`` and ``asr.readback`` with the
 step and sync counts. ``infer_time_ms`` is read after the texts are
 decoded, in both entry points.
+
+Requests for Uni-MoE-2.0-Omni (``model="uni-moe-2.0-omni"``) take both
+entry points to ``transcribe_omni``: the batch bucket's clips through the
+omni program (``decoding/omni.py``: the Whisper-large encoder, the
+connector, the MoE decoder's prefill and greedy decode), one
+``omni_call`` record a dispatch, and results that carry the reply's
+token ids (``tokens``; the text stays empty until Qwen2's vocabulary is
+held).
 """
 
 from __future__ import annotations
@@ -75,7 +83,9 @@ from wis_tpu_torch.decoding.fused import (
     packed_width,
     unpack_asr_result,
 )
+from wis_tpu_torch.decoding.omni import run_omni, unpack_omni
 from wis_tpu_torch.languages import to_language_code
+from wis_tpu_torch.models.unimoe.config import is_omni
 from wis_tpu_torch.models.whisper.config import WHISPER_CONFIGS, resolve_model_name
 from wis_tpu_torch.models.whisper.tokenizer import (
     EOT,
@@ -87,10 +97,15 @@ from wis_tpu_torch.models.whisper.tokenizer import (
 from wis_tpu_torch.ops.fused_decode import MAX_ROWS as FUSED_MAX_ROWS
 from wis_tpu_torch.ops.fused_decode import pack_decoder
 from wis_tpu_torch.runtime.batcher import ASRRequest
-from wis_tpu_torch.runtime.residency import LoadedModel, ModelRegistry
+from wis_tpu_torch.runtime.residency import LoadedModel, LoadedOmni, ModelRegistry
 from wis_tpu_torch.utils.timing import StageTimer, span
 
 logger = logging.getLogger("wis_tpu_torch")
+
+#: the counters of an ``omni_call`` record, in the omni program's order
+COUNTERS = ("moe.tokens", "moe.expert_rows", "moe.null_rows", "moe.experts_touched",
+            "moe.prefill_tokens", "moe.prefill_expert_rows", "moe.prefill_null_rows",
+            "moe.prefill_experts_touched")
 
 #: samples between the starts of two long-form windows (14 s)
 CHUNK_STEP = CHUNK_LEN - STRIDE_LEFT - STRIDE_RIGHT
@@ -112,6 +127,9 @@ class TranscriptionResult:
     segments: Optional[list] = None
     #: present when word_timestamps was requested (single-window only)
     words: Optional[list] = None
+    #: the reply's token ids, for a model whose vocabulary the port does
+    #: not hold (Uni-MoE-2.0-Omni; its text is then empty)
+    tokens: Optional[List[int]] = None
 
 
 def _to_i16(audio: np.ndarray) -> np.ndarray:
@@ -384,7 +402,13 @@ class WhisperEngine:
         """audio: 1-D PCM at 16 kHz, float32 or int16. Audio over 30 s is
         chunked (or truncated when chunking is off). timestamps=True
         returns ``segments`` and word_timestamps=True ``words`` for
-        single-window requests; chunked long-form decodes text only."""
+        single-window requests; chunked long-form decodes text only.
+        Uni-MoE-2.0-Omni (``model="uni-moe-2.0-omni"``) replies to the clip
+        (``transcribe_omni``)."""
+        if is_omni(model or ""):
+            if timestamps or word_timestamps:
+                raise ValueError(f"model {model!r} gives no timestamps")
+            return self.transcribe_omni([(audio, max_tokens)], model)[0]
         s = self.settings
         with StageTimer("asr_call") as timer:
             model_name = model or s.whisper_model_default
@@ -532,6 +556,11 @@ class WhisperEngine:
     # padded batch with per-row prompts
     # ------------------------------------------------------------------ #
     def transcribe_coalesced(self, requests) -> List[TranscriptionResult]:
+        if is_omni(requests[0].model):
+            if requests[0].timestamps:
+                raise ValueError(f"model {requests[0].model!r} gives no timestamps")
+            return self.transcribe_omni([(r.audio, r.max_tokens) for r in requests],
+                                        requests[0].model)
         s = self.settings
         with StageTimer("asr_call") as timer:
             model_name = requests[0].model
@@ -622,6 +651,61 @@ class WhisperEngine:
                     segments=segments,
                 )
                 for (lang, text, translation, segments), dur in zip(rows, durations)
+            ]
+
+    # ------------------------------------------------------------------ #
+    # Uni-MoE-2.0-Omni: spoken input, a reply's token ids out
+    # ------------------------------------------------------------------ #
+    def transcribe_omni(self, items: Sequence[Tuple[np.ndarray, Optional[int]]],
+                        model: str) -> List[TranscriptionResult]:
+        """Clips (16 kHz PCM, float32 or int16, each one 30 s window at
+        most) with their token caps → one dispatch of the omni program
+        (``decoding/omni.py``) over the batch bucket, and one result per
+        clip carrying its reply's ids (``tokens``). One ``omni_call``
+        record: ``features``, ``omni_dispatch`` (its range named with the
+        bucket ``B``, the real ``rows`` and the largest ``cap``) with the
+        program's spans inside, and the counters ``COUNTERS``: the tokens
+        through each layer, the dynamic-expert rows, the null-expert rows
+        and the experts touched, summed over the expert calls, then the same
+        of the prefill alone."""
+        s = self.settings
+        with StageTimer("omni_call") as timer:
+            loaded: LoadedOmni = self.registry.get(model)
+            cfg = loaded.cfg
+            audios = [np.asarray(a).reshape(-1) for a, _ in items]
+            durations = [int(a.shape[0] / SAMPLE_RATE * 1000) for a in audios]
+            n = len(items)
+            bucket = self._bucket(n)
+            if n > bucket:
+                raise ValueError(f"{n} clips over the largest batch bucket {bucket}")
+            with timer.span("features"):
+                n_samp = self._sample_bucket(max(a.shape[0] for a in audios))
+                windows = np.zeros((bucket, n_samp), np.int16)
+                for i, a in enumerate(audios):
+                    w = a[:n_samp]
+                    windows[i, : w.shape[0]] = w if w.dtype == np.int16 else _to_i16(w)
+            caps = [min(int(c or cfg.max_new_tokens), s.max_decode_tokens) for _, c in items]
+            caps += [caps[-1]] * (bucket - n)
+            max_new = max(caps)
+            with self.device_lock:
+                with timer.span("omni_dispatch", B=bucket, rows=n, cap=max_new):
+                    d_audio = torch.from_numpy(windows).to(self.device)
+                    result = run_omni(loaded.params, cfg, d_audio, caps, n, loaded.slots,
+                                      cfg.prompt_len + s.max_decode_tokens)
+                    with span("omni.readback"):
+                        packed = result.cpu().numpy()
+            tokens, lengths, ctr = unpack_omni(packed, bucket, max_new)
+            for name, v in zip(COUNTERS, ctr):
+                timer.count(name, int(v))
+            infer_ms = timer.total_ms()
+            timings = timer.as_dict()
+            return [
+                TranscriptionResult(
+                    language="", text="", infer_time_ms=infer_ms, translation=None,
+                    infer_speedup=math.floor(dur / infer_ms) if infer_ms > 0 else 0,
+                    audio_duration_ms=dur, timings=dict(timings),
+                    tokens=[int(t) for t in tokens[i, : lengths[i]]])
+                for i, dur in enumerate(durations)
             ]
 
     def _merge_seqs(self, seqs_lens: Sequence[Tuple[np.ndarray, int]],

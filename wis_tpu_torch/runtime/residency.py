@@ -18,6 +18,12 @@ Weights come from one of two sources:
   are made on the device. The seed is a stable CRC of the size name. (The
   JAX registry seeds with ``hash(size)``, which Python salts per process;
   the port does not reproduce that.)
+
+Beside the Whisper sizes it holds Uni-MoE-2.0-Omni under its name
+(``models/unimoe``; ``LoadedOmni``): its checkpoint's safetensors in its
+model directory converted on the device, else seeded weights
+(``load_or_init_omni``), in bf16 with the router in float32, under the
+same budget.
 """
 
 from __future__ import annotations
@@ -26,12 +32,14 @@ import logging
 import os
 import threading
 import zlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import torch
 
 from wis_tpu_torch.device import DeviceLike, resolve_device
+from wis_tpu_torch.models.unimoe.config import OmniConfig, is_omni, omni_config
+from wis_tpu_torch.models.unimoe.weights import load_or_init as load_or_init_omni
 from wis_tpu_torch.models.whisper.config import (
     WHISPER_CONFIGS,
     WhisperConfig,
@@ -57,6 +65,8 @@ def stable_seed(size: str) -> int:
 def tree_bytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
     return tree.numel() * tree.element_size()
 
 
@@ -72,6 +82,20 @@ class LoadedModel:
     packed: Optional[PackedDecoder] = None
     #: the size's asset directory (tokenizer, alignment heads), if any
     model_dir: Optional[str] = None
+
+
+@dataclass
+class LoadedOmni:
+    """Uni-MoE-2.0-Omni's speech-to-text path (``models/unimoe``)."""
+
+    name: str
+    cfg: OmniConfig
+    params: Dict
+    param_bytes: int
+    model_dir: Optional[str] = None
+    #: the decode step's slots by batch bucket (``decoding/omni.StepSlot``),
+    #: made by the engine at first use
+    slots: Dict = field(default_factory=dict)
 
 
 class ModelRegistry:
@@ -132,6 +156,8 @@ class ModelRegistry:
         )
 
     def get(self, name: str) -> LoadedModel:
+        if is_omni(name):
+            return self._get_omni(name)
         size = resolve_model_name(name)
         with self._lock:
             if size in self._models:
@@ -169,6 +195,27 @@ class ModelRegistry:
             self._models[size] = model
             return model
 
+    def _get_omni(self, name: str) -> LoadedOmni:
+        """Uni-MoE-2.0-Omni under its name: a checkpoint in its model
+        directory, else seeded weights (``load_or_init_omni``)."""
+        key = name.strip().lower()
+        with self._lock:
+            if key in self._models:
+                return self._models[key]
+            cfg = omni_config(key)
+            need = cfg.hbm_bytes(2 if self.dtype == torch.bfloat16 else 4)
+            if self.resident_bytes() + need + _HEADROOM_BYTES > self.settings.hbm_budget_bytes:
+                raise MemoryError(
+                    f"Loading {key} would exceed the HBM budget "
+                    f"({self.resident_bytes()/2**30:.1f} GiB resident, "
+                    f"budget {self.settings.hbm_budget_bytes/2**30:.1f} GiB)")
+            logger.info("REGISTRY: loading %s onto %s", key, self.device)
+            params = load_or_init_omni(cfg, self._model_dir(key), stable_seed(key), self.device,
+                                       self.dtype)
+            model = LoadedOmni(key, cfg, params, tree_bytes(params), self._model_dir(key))
+            self._models[key] = model
+            return model
+
     def loaded(self) -> Dict[str, LoadedModel]:
         return dict(self._models)
 
@@ -177,7 +224,7 @@ class ModelRegistry:
         tree and the fused step's packed weights (``LoadedModel.packed``)
         go with it: the device memory is freed once no request still holds
         the model."""
-        size = resolve_model_name(name)
+        size = name.strip().lower() if is_omni(name) else resolve_model_name(name)
         with self._lock:
             return self._models.pop(size, None) is not None
 

@@ -3,7 +3,8 @@
 
 A ``StageTimer`` is the record of one unit of work: its ``kind``
 (``asr_call``: one engine call; ``asr_batch``: one batcher dispatch;
-``tts_stream``: one TTS stream), the ids of the requests it served, its
+``tts_stream``: one TTS stream; ``omni_call``: one Uni-MoE-2.0-Omni
+dispatch), the ids of the requests it served, its
 bounds ``t0``/``t1`` on ``time.perf_counter`` (the clock a caller stamps
 requests with), its spans (name, start, end, the span open around it on
 its thread, attributes) and its counts. Entered as a context manager it is
