@@ -200,6 +200,14 @@ exits non-zero without printing a result:
    the bucket's step graph; the grouped kernel's launches counted over
    that dispatch alone (the prefill's eager launches and each step graph
    replay's tally), 2 a layer of every forward.
+19. the fused program's prompt prefill on large-v2 at the ASR cells' two
+   main keys (four windows, beam 5 and cache 128; beam 3 and cache 256),
+   replayed from a slot's CUDA graph (``decoding/prefill_slots``): the
+   capture's time, the replay bit for bit against the eager prefill, the
+   slot's int8 launches (8 a decoder layer, the warm-up's taken back),
+   eager and replay timed in turns, the replay's time on the card, the
+   bytes a slot holds; with ``--parent``, the parent's ``generate`` against
+   this tree's to the first selection, in turns.
 
 Each phase prints its seconds as it ends. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -4091,6 +4099,150 @@ def check_moe_experts(torch, dev):
     return rows
 
 
+#: phase 19's prefill keys: (batch, beams, decode bucket), the coalesced
+#: utterances' (cache 128) and a long-form group's (cache 256)
+PREFILL_KEYS = ((4, 5, 96), (4, 3, 224))
+
+
+def _wall_ms(torch, fn, reps=7):
+    """Median wall time of fn() to the card's end (a synchronise on each
+    side): what a dispatch waits for it."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _parent_beam(parent):
+    """The parent checkout's ``decoding/beam.py`` as its own module, over
+    this tree's other modules."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_wis_beam", os.path.join(parent, "wis_tpu_torch", "decoding", "beam.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_prefill_graphs(torch, dev, engine, parent=None):
+    """Phase 19: the fused program's prompt prefill replayed from a slot's
+    CUDA graph (``decoding/prefill_slots``) on large-v2 at the two ASR
+    cells' main keys, over four windows of seeded audio: the capture's
+    wall time (eager warm-up, capture, first replay), the replay bit for
+    bit against the eager prefill, eager and replayed prefill timed in
+    turns (eager, replay, replay, eager; wall time to the card's end) with
+    the replay's device time, the bytes the slot holds; with ``parent``,
+    the parent's ``generate`` and this tree's (with the engine's slots) at
+    a cap of 1 token, the prefill and the search's first selection, in
+    turns parent / change / change / parent, their results equal.
+    → {key: readings}."""
+    import functools
+
+    from wis_tpu_torch.audio.mel import N_SAMPLES, log_mel
+    from wis_tpu_torch.decoding import beam as beam_mod
+    from wis_tpu_torch.decoding.prefill_slots import PrefillSlots
+    from wis_tpu_torch.models.whisper.model import cross_kv, encode
+    from wis_tpu_torch.models.whisper.tokenizer import build_prompt
+    from wis_tpu_torch.ops.quant import int8_matmul
+
+    loaded = engine.registry.get("large")
+    packed = engine._packed_decoder(loaded)
+    cfg, params, tok = loaded.cfg, loaded.params, loaded.tokenizer
+    L = cfg.n_text_layer
+    pbeam = _parent_beam(parent) if parent else None
+    out = {}
+    with torch.inference_mode():
+        for batch, beams, max_new in PREFILL_KEYS:
+            kw = dict(beam_size=beams, batch=batch, max_new_tokens=max_new, prompt_len=4,
+                      suppress_tokens=tok.suppress_tokens,
+                      begin_suppress_tokens=tok.begin_suppress_tokens, fused=True,
+                      xa_int8=engine._xa_int8())
+            gen = beam_mod.build_generate_xa(cfg, **kw)
+            key = gen.prefill_key
+            cache = key[3]
+            name = f"prefill B={batch} K={beams} cache={cache}"
+            audio = np.zeros((batch, N_SAMPLES), np.int16)
+            for b in range(batch):
+                clip = _audio_i16(3000 + 700 * b, 900 + 10 * batch + b)
+                audio[b, :clip.shape[0]] = clip
+            mel = log_mel(torch.from_numpy(audio).to(dev).float() / 32768.0, n_mels=cfg.n_mels)
+            xa_kv = cross_kv(params, encode(params, mel, cfg), cfg)
+            prompt = torch.tensor([build_prompt("en", layout=tok.layout)] * batch,
+                                  dtype=torch.long, device=dev)
+            begin_sup = torch.from_numpy(beam_mod._suppress_mask(
+                cfg.n_vocab, tuple(tok.begin_suppress_tokens))).to(dev)
+            body = functools.partial(beam_mod.prefill_state, cfg, params, beams=beams,
+                                     cache_len=cache, fused=True, xa_int8=kw["xa_int8"],
+                                     renorm_suppressed=True)
+            want = body(prompt, xa_kv, begin_sup)
+            slot = PrefillSlots().get(key)
+            launches = int8_matmul.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = slot.run(body, prompt, xa_kv, begin_sup)
+            torch.cuda.synchronize()
+            capture_ms = (time.perf_counter() - t0) * 1e3
+            expect(f"{name}: {int8_matmul.launches - launches} int8 launches, tally "
+                   f"{slot.tally}", int8_matmul.launches - launches == slot.tally == 8 * L)
+            same = [bool(torch.equal(a, b)) for a, b in (
+                (got.first_lp, want.first_lp), (got.cache.k, want.cache.k),
+                (got.cache.v, want.cache.v), (got.anc, want.anc),
+                *zip(got.xa, want.xa))]
+            expect(f"{name}: replay against eager, bit for bit: {same}", all(same))
+
+            def eager():
+                body(prompt, xa_kv, begin_sup)
+
+            def replay():
+                slot.run(body, prompt, xa_kv, begin_sup)
+
+            t = [_wall_ms(torch, f) for f in (eager, replay, replay, eager)]
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            dev_ms = []
+            for _ in range(7):
+                a.record()
+                replay()
+                b.record()
+                b.synchronize()
+                dev_ms.append(a.elapsed_time(b))
+            row = dict(capture_ms=capture_ms, turns_ms=t, device_ms=statistics.median(dev_ms),
+                       bytes=slot.bytes)
+            print(f"{name}: capture {capture_ms:.1f} ms; eager, replay, replay, eager "
+                  + ", ".join(f"{x:.2f}" for x in t)
+                  + f" ms; replay/eager {min(t[1], t[2]) / min(t[0], t[3]):.3f}; replay on "
+                  f"the card {row['device_ms']:.2f} ms; slot holds {slot.bytes / 2**20:.1f} MiB "
+                  f"(inputs {sum(x.numel() * x.element_size() for x in slot.inputs) / 2**20:.1f})")
+            if pbeam is not None:
+                pgen = pbeam.build_generate_xa(cfg, **kw)
+                slots = PrefillSlots()
+
+                def parent_fn():
+                    return pgen(params, packed, xa_kv, prompt, 1)
+
+                def change_fn():
+                    return gen(params, packed, xa_kv, prompt, 1, slots)
+
+                p_res, c_res = parent_fn(), change_fn()
+                c_res = change_fn()  # the capture above, a replay here
+                for field in ("tokens", "lengths", "scores", "best"):
+                    expect(f"{name}: parent and change {field}",
+                           bool(torch.equal(getattr(p_res, field), getattr(c_res, field))))
+                turns = [_wall_ms(torch, f) for f in (parent_fn, change_fn, change_fn, parent_fn)]
+                row["parent_turns_ms"] = turns
+                print(f"{name} to the first selection: parent {turns[0]:.2f}, change "
+                      f"{turns[1]:.2f}, change {turns[2]:.2f}, parent {turns[3]:.2f} ms; "
+                      f"change/parent {min(turns[1:3]) / min(turns[0], turns[3]):.3f}")
+            out[key] = row
+            del slot, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_omni_dispatch(torch, dev):
     """Phase 18: one dispatch of eight clips at cap 128 through the
     engine's omni path, the grouped kernel's launches counted over it: 2 a
@@ -4312,6 +4464,8 @@ def main() -> int:
     clock.done(17)
     omni = check_omni_dispatch(torch, dev)
     clock.done(18)
+    check_prefill_graphs(torch, dev, engine, args.parent)
+    clock.done(19)
 
     rows = [
         dict(name="layer_norm", source="wis_tpu_torch/csrc/layernorm.cu",

@@ -14,9 +14,13 @@ names each logical beam's physical row per position (``model.py``).
 The loop runs eagerly, one host check of the exit condition per token.
 Under the caller's current timer (``utils/timing``) it records the spans
 ``asr.prefill`` (prefill, cache layout, cross-KV flattening and int8
-columns) and ``asr.decode`` (the loop), and in the loop an ``asr.step`` (the
-host launching one step and its selection) and an ``asr.sync`` (the exit
-check, the host blocked on the device) with their counts.
+columns: ``prefill_state``) and ``asr.decode`` (the loop), and in the loop
+an ``asr.step`` (the host launching one step and its selection) and an
+``asr.sync`` (the exit check, the host blocked on the device) with their
+counts. The fused branch on a CUDA device, given the model's prefill slots,
+replays the whole prefill from a captured graph (``decoding/prefill_slots``,
+counted there); every other prefill runs eagerly and counts
+``asr.prefill_eager``.
 ``fused=True`` runs each token through the fused decode step and the fused
 head (``ops/fused_decode``, ``ops/fused_logits``) on the kernels' layouts,
 as the JAX package's fused branch does.
@@ -43,6 +47,7 @@ same rules to the head as ``ts_state`` rows.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -85,6 +90,93 @@ def _suppress_mask(n_vocab: int, suppress: Tuple[int, ...]) -> np.ndarray:
     return m
 
 
+class Prefill(NamedTuple):
+    """The decode loop's start, as the prompt prefill leaves it."""
+
+    first_lp: torch.Tensor  # (B, V) f32 — the first token's masked log-probabilities
+    cache: DecoderCache  # each beam's copy of the prompt's K/V (fused: flat time-major)
+    anc: torch.Tensor  # (B, K, T) int64 — the ancestry map over the prompt
+    beam_rows: torch.Tensor  # (K,) int64
+    xa: Optional[Tuple[torch.Tensor, ...]]  # fused: the kernel-layout cross-KV (k, v[, s])
+    boff: Optional[torch.Tensor]  # fused: (B, 1, 1) each sequence's first beam row
+    bk_rows: Optional[torch.Tensor]  # fused: (BK,)
+
+
+def prefill_state(
+    cfg: WhisperConfig,
+    params: dict,
+    prompt: torch.Tensor,  # (B, P) int64
+    xa_kv: Tuple[torch.Tensor, torch.Tensor],
+    begin_sup: torch.Tensor,  # (V,) f32 — the first token's suppress mask
+    *,
+    beams: int,
+    cache_len: int,
+    fused: bool,
+    xa_int8: bool,
+    renorm_suppressed: bool,
+    tp: Optional[ModelAxis] = None,
+) -> Prefill:
+    """The prompt through the decoder on batch B (``model.prefill``), the
+    first token's log-probabilities, each beam's cache and the ancestry
+    map; fused, the kernels' layouts: caches (L, D, T·B·K) flat time-major
+    and cross-KV (L, H, Dh, B·S_pad), int8 per column with ``xa_int8``
+    (``build_generate_xa``). The same work at every call of one shape: on
+    the card the fused program replays it from a graph
+    (``decoding/prefill_slots``)."""
+    K = beams
+    B, prompt_len = prompt.shape
+    device = xa_kv[0].device
+    dtype = params["decoder"]["tok_emb"].dtype
+    cache0 = DecoderCache.zeros(cfg, B, cache_len, dtype, device, tp)
+    logits, cache0 = prefill(params, prompt, cache0, xa_kv, cfg, tp)
+    first_raw = logits[:, -1]  # (B, V) f32
+    first_masked = first_raw + begin_sup
+    first_lse = torch.logsumexp(
+        first_masked if renorm_suppressed else first_raw, dim=-1, keepdim=True
+    )
+    first_lp = first_masked - first_lse
+
+    xa = boff = bk_rows = None
+    if fused:
+        H, L = cfg.n_text_head, cfg.n_text_layer
+        Dh = cfg.n_text_state // H
+        s_pad = ((cfg.n_audio_ctx + 127) // 128) * 128
+
+        # flat time-major (L, D, T·B·K): column (t·B + b)·K + k, so each
+        # position's BK rows are one contiguous block
+        def flat_tmajor(c):  # (L, B, H, Dh, T)
+            flat = c.reshape(L, B, H * Dh, cache_len).permute(0, 2, 3, 1)
+            return flat.reshape(L, H * Dh, cache_len * B).repeat_interleave(K, dim=-1)
+
+        cache = DecoderCache(flat_tmajor(cache0.k), flat_tmajor(cache0.v), cache0.pos)
+
+        def flat_xa(x):  # (L, B, H, Dh, S) → (L, H, Dh, B·S_pad)
+            t = F.pad(x.permute(0, 2, 3, 1, 4), (0, s_pad - cfg.n_audio_ctx))
+            return t.reshape(L, H, Dh, B * s_pad)
+
+        xa = (flat_xa(xa_kv[0]), flat_xa(xa_kv[1]))
+        if xa_int8:
+            xa = quantize_xa_columns(*xa)
+        boff = (torch.arange(B, device=device) * K)[:, None, None]
+        bk_rows = torch.arange(B * K, device=device)
+    else:
+        cache = DecoderCache(
+            cache0.k.repeat_interleave(K, dim=1),
+            cache0.v.repeat_interleave(K, dim=1),
+            cache0.pos,
+        )
+    # ancestry: prompt positions live in each beam's own (replicated)
+    # row; unwritten positions are -1 (masked)
+    own_row = torch.arange(K, device=device)[None, :, None].expand(B, K, cache_len)
+    anc = torch.where(
+        torch.arange(cache_len, device=device)[None, None, :] < prompt_len,
+        own_row,
+        -1,
+    )
+    beam_rows = torch.arange(K, device=device)
+    return Prefill(first_lp, cache, anc, beam_rows, xa, boff, bk_rows)
+
+
 def build_generate_xa(
     cfg: WhisperConfig,
     *,
@@ -102,7 +194,8 @@ def build_generate_xa(
     eot_id: Optional[int] = None,
     tp: Optional[ModelAxis] = None,
 ):
-    """Return generate(params, xa_kv, prompt, token_cap) → GenerateResult.
+    """Return generate(params, xa_kv, prompt, token_cap, slots=None) →
+    GenerateResult.
 
     xa_kv: cross-attention K/V for ``batch`` windows (``model.cross_kv``);
     prompt: (prompt_len,) shared or (batch, prompt_len) per sequence;
@@ -111,15 +204,19 @@ def build_generate_xa(
     masking (HF order); eot_id overrides the EOT id. with_timestamps
     applies the timestamp grammar (module docstring).
 
-    fused=True: generate(params, packed, xa_kv, prompt, token_cap), with
-    ``packed = ops.fused_decode.pack_decoder(params, cfg)``. Each token runs
-    the fused step over the kernel layouts — caches (L, D, T·BK) flat
-    time-major with T rounded up to a multiple of 128 (the prefill still
-    runs the eager decoder and its cache is flattened once), cross-KV
-    (L, H, Dh, B·S_pad) with each window zero-padded — and then the fused
-    head, int8 when the tree carries ``tok_emb_q``. xa_int8 (fused only)
-    quantizes the flattened cross-KV per column once before the loop
-    (``quantize_xa_columns``).
+    fused=True: generate(params, packed, xa_kv, prompt, token_cap,
+    slots=None), with ``packed = ops.fused_decode.pack_decoder(params,
+    cfg)``. Each token runs the fused step over the kernel layouts — caches
+    (L, D, T·BK) flat time-major with T rounded up to a multiple of 128 (the
+    prefill still runs the eager decoder and its cache is flattened once),
+    cross-KV (L, H, Dh, B·S_pad) with each window zero-padded — and then the
+    fused head, int8 when the tree carries ``tok_emb_q``. xa_int8 (fused
+    only) quantizes the flattened cross-KV per column once before the loop
+    (``quantize_xa_columns``). ``slots``, the model's prefill slots
+    (``decoding/prefill_slots.PrefillSlots``, ``LoadedModel.prefill_slots``):
+    on a CUDA device the prefill replays from the slot of
+    ``generate.prefill_key``, shared by every program of the model with
+    that key; elsewhere, and for the eager branch, it is ignored.
 
     tp: this rank's model axis; ``params`` and ``xa_kv`` are its shard
     (eager only: ``fused=True`` with ``tp`` raises)."""
@@ -144,9 +241,6 @@ def build_generate_xa(
                        full_lse=not renorm_suppressed)
         head_fn = build_fused_logits_topk(cfg, **head_kw)
         head_fn_q = build_fused_logits_topk(cfg, emb_int8=True, **head_kw)
-        H, L = cfg.n_text_head, cfg.n_text_layer
-        Dh = cfg.n_text_state // H
-        s_pad = ((cfg.n_audio_ctx + 127) // 128) * 128
     base_suppress = tuple(suppress_tokens)
     if with_timestamps:
         base_suppress += (layout_for_vocab(cfg.n_vocab).no_timestamps,)
@@ -157,66 +251,50 @@ def build_generate_xa(
         begin_extra += tuple(range(ts_base + MAX_INITIAL_TS_INDEX + 1, cfg.n_vocab))
     sup_np = _suppress_mask(cfg.n_vocab, base_suppress)
     begin_np = _suppress_mask(cfg.n_vocab, begin_extra)
+    #: device → (sup, begin_sup), made once per device
+    masks = {}
+    run_prefill = functools.partial(
+        prefill_state, cfg, beams=K, cache_len=cache_len, fused=fused, xa_int8=xa_int8,
+        renorm_suppressed=renorm_suppressed, tp=tp,
+    )
+    #: what the prefill's work depends on beyond the model: programs with
+    #: one key share a prefill slot (``decoding/prefill_slots``)
+    prefill_key = (B, K, prompt_len, cache_len, xa_int8, tuple(suppress_tokens),
+                   tuple(begin_suppress_tokens), with_timestamps, renorm_suppressed)
 
     def _norm_len(n):
         """Length-penalty denominator: generated length incl. EOT."""
         n = torch.as_tensor(n, dtype=torch.float32)
         return n if length_penalty == 1.0 else n ** length_penalty
 
-    def _generate(params, packed, xa_kv, prompt, token_cap) -> GenerateResult:
+    def _generate(params, packed, xa_kv, prompt, token_cap, slots) -> GenerateResult:
+        """``_run``, with the prefill slot of ``prefill_key`` on the card,
+        holding the slots until the loop that reads its outputs has been
+        launched."""
+        if not (fused and slots is not None and xa_kv[0].device.type == "cuda"):
+            return _run(params, packed, xa_kv, prompt, token_cap, None)
+        with slots.lock:
+            return _run(params, packed, xa_kv, prompt, token_cap, slots.get(prefill_key))
+
+    def _run(params, packed, xa_kv, prompt, token_cap, slot) -> GenerateResult:
         device = xa_kv[0].device
-        dtype = params["decoder"]["tok_emb"].dtype
-        sup = torch.from_numpy(sup_np).to(device)
-        begin_sup = torch.from_numpy(begin_np).to(device)
+        if device not in masks:
+            masks[device] = (torch.from_numpy(sup_np).to(device),
+                             torch.from_numpy(begin_np).to(device))
+        sup, begin_sup = masks[device]
         cap_eff = max(min(max_new_tokens, int(token_cap)), 1)
 
         # ---- prefill on batch B ---- #
         with span("asr.prefill"):
-            cache0 = DecoderCache.zeros(cfg, B, cache_len, dtype, device, tp)
             prompt = prompt.to(device=device, dtype=torch.long)
             prompt_b = prompt.expand(B, prompt_len) if prompt.dim() == 1 else prompt
-            logits, cache0 = prefill(params, prompt_b, cache0, xa_kv, cfg, tp)
-            first_raw = logits[:, -1]  # (B, V) f32
-            first_masked = first_raw + begin_sup
-            first_lse = torch.logsumexp(
-                first_masked if renorm_suppressed else first_raw, dim=-1, keepdim=True
-            )
-            first_lp = first_masked - first_lse
-
-            if fused:
-                # flat time-major (L, D, T·B·K): column (t·B + b)·K + k, so each
-                # position's BK rows are one contiguous block
-                def flat_tmajor(c):  # (L, B, H, Dh, T)
-                    flat = c.reshape(L, B, H * Dh, cache_len).permute(0, 2, 3, 1)
-                    return flat.reshape(L, H * Dh, cache_len * B).repeat_interleave(K, dim=-1)
-
-                cache = DecoderCache(flat_tmajor(cache0.k), flat_tmajor(cache0.v), cache0.pos)
-
-                def flat_xa(xa):  # (L, B, H, Dh, S) → (L, H, Dh, B·S_pad)
-                    t = F.pad(xa.permute(0, 2, 3, 1, 4), (0, s_pad - cfg.n_audio_ctx))
-                    return t.reshape(L, H, Dh, B * s_pad)
-
-                xa_k_f, xa_v_f = flat_xa(xa_kv[0]), flat_xa(xa_kv[1])
-                xa_s_f = None
-                if xa_int8:
-                    xa_k_f, xa_v_f, xa_s_f = quantize_xa_columns(xa_k_f, xa_v_f)
-                boff = (torch.arange(B, device=device) * K)[:, None, None]
-                bk_rows = torch.arange(BK, device=device)
+            if slot is None:
+                count("asr.prefill_eager")
+                pre = run_prefill(params, prompt_b, xa_kv, begin_sup)
             else:
-                cache = DecoderCache(
-                    cache0.k.repeat_interleave(K, dim=1),
-                    cache0.v.repeat_interleave(K, dim=1),
-                    cache0.pos,
-                )
-            # ancestry: prompt positions live in each beam's own (replicated)
-            # row; unwritten positions are -1 (masked)
-            own_row = torch.arange(K, device=device)[None, :, None].expand(B, K, cache_len)
-            anc = torch.where(
-                torch.arange(cache_len, device=device)[None, None, :] < prompt_len,
-                own_row,
-                -1,
-            )
-            beam_rows = torch.arange(K, device=device)
+                pre = slot.run(functools.partial(run_prefill, params), prompt_b, xa_kv,
+                               begin_sup)
+        first_lp, cache, anc, beam_rows, xa_f, boff, bk_rows = pre
 
         def ts_rows(ts):
             """(prev_ts, prevprev_ts, max_ts) (B, K) → the head's ts_state
@@ -244,8 +322,7 @@ def build_generate_xa(
                 dec["tok_emb"][tokens.reshape(BK)].float()
                 + dec["pos"][cache.pos].float()[None]
             )
-            xa = (xa_k_f, xa_v_f) + ((xa_s_f,) if xa_int8 else ())
-            x_out, kc, vc = step_fn(packed, x_emb, cache.k, cache.v, *xa, sel, cache.pos)
+            x_out, kc, vc = step_fn(packed, x_emb, cache.k, cache.v, *xa_f, sel, cache.pos)
             anc = anc.clone()
             anc[:, :, cache.pos] = beam_rows
             if "tok_emb_q" in dec:
@@ -285,11 +362,12 @@ def build_generate_xa(
             return _beam(first_lp, cache, anc, run_step, cap_eff, device)
 
     if fused:
-        def generate(params, packed, xa_kv, prompt, token_cap) -> GenerateResult:
-            return _generate(params, packed, xa_kv, prompt, token_cap)
+        def generate(params, packed, xa_kv, prompt, token_cap, slots=None) -> GenerateResult:
+            return _generate(params, packed, xa_kv, prompt, token_cap, slots)
     else:
-        def generate(params, xa_kv, prompt, token_cap) -> GenerateResult:
-            return _generate(params, None, xa_kv, prompt, token_cap)
+        def generate(params, xa_kv, prompt, token_cap, slots=None) -> GenerateResult:
+            return _generate(params, None, xa_kv, prompt, token_cap, slots)
+    generate.prefill_key = prefill_key
 
     # ------------------------------------------------------------------
     # Greedy (K == 1): argmax each step, stop at the first EOT

@@ -56,11 +56,15 @@ def build_asr_program(
     n_samples: int = N_SAMPLES,
     chunked: bool = False,
 ):
-    """Return asr(params, audio_i16 (B, n_samples), ctl (B, P+2)) → packed
-    int32 (B, W) on the inputs' device; with fused_step,
-    asr(params, packed_dec, audio_i16, ctl). xa_int8 streams the cross-KV
-    as per-column int8 inside the fused step. chunked: audio_i16 is one
-    (n_samples,) segment with n_samples ≥ (batch − 1)·step + CHUNK_LEN."""
+    """Return asr(params, audio_i16 (B, n_samples), ctl (B, P+2),
+    slots=None) → packed int32 (B, W) on the inputs' device; with
+    fused_step, asr(params, packed_dec, audio_i16, ctl, slots=None).
+    xa_int8 streams the cross-KV as per-column int8 inside the fused step.
+    chunked: audio_i16 is one (n_samples,) segment with n_samples ≥
+    (batch − 1)·step + CHUNK_LEN. ``slots``: the model's prefill slots,
+    which a fused program on the card replays its prefill from (each call
+    of a translating program twice); ``asr.prefill_key`` names its slot
+    (``build_generate_xa``)."""
     translate_tok = layout_for_vocab(cfg.n_vocab).translate
     K = beam_size
     gen = build_generate_xa(
@@ -77,7 +81,8 @@ def build_asr_program(
     )
 
     @torch.inference_mode()
-    def _asr(params, packed_dec, audio_i16: torch.Tensor, ctl: torch.Tensor) -> torch.Tensor:
+    def _asr(params, packed_dec, audio_i16: torch.Tensor, ctl: torch.Tensor,
+             slots) -> torch.Tensor:
         device = audio_i16.device
         prompt = ctl[:, :prompt_len].long()
         detect_mask = ctl[:, prompt_len]
@@ -125,7 +130,7 @@ def build_asr_program(
 
         def run(p):
             if fused_step:
-                return gen(params, packed_dec, xa_kv, p, token_cap)
+                return gen(params, packed_dec, xa_kv, p, token_cap, slots)
             return gen(params, xa_kv, p, token_cap)
 
         packed = pack(run(prompt))
@@ -136,11 +141,12 @@ def build_asr_program(
         return packed
 
     if fused_step:
-        def asr(params, packed_dec, audio_i16, ctl):
-            return _asr(params, packed_dec, audio_i16, ctl)
+        def asr(params, packed_dec, audio_i16, ctl, slots=None):
+            return _asr(params, packed_dec, audio_i16, ctl, slots)
     else:
-        def asr(params, audio_i16, ctl):
-            return _asr(params, None, audio_i16, ctl)
+        def asr(params, audio_i16, ctl, slots=None):
+            return _asr(params, None, audio_i16, ctl, slots)
+    asr.prefill_key = gen.prefill_key
     return asr
 
 

@@ -25,7 +25,7 @@ weight), then the matmul accumulates in f32 and rounds to x's dtype.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import torch
 
@@ -94,6 +94,9 @@ def _sm_count(index: int) -> int:
 
 
 _counters: Dict[int, torch.Tensor] = {}
+#: counters outgrown by a wider product, kept: a CUDA graph captured over
+#: them still reads them at every replay
+_retired: List[torch.Tensor] = []
 
 
 def _split_counters(device: torch.device, n: int) -> torch.Tensor:
@@ -103,6 +106,8 @@ def _split_counters(device: torch.device, n: int) -> torch.Tensor:
     its products on one stream."""
     have = _counters.get(device.index)
     if have is None or have.numel() < n:
+        if have is not None:
+            _retired.append(have)
         have = _counters[device.index] = torch.zeros(max(n, 64), dtype=torch.int32,
                                                      device=device)
     return have
@@ -116,7 +121,10 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     per call (at most 64 rows, K split over the SMs, the splits summed in
     the same launch); CPU tensors run the plain version. The kernel stores
     bf16 for a bf16 ``out_dtype`` (default x's dtype) and f32 for any
-    other, which is then cast."""
+    other, which is then cast. Launches count in ``int8_matmul.launches``;
+    one made while its stream is being captured counts in
+    ``int8_matmul.captured`` instead: the graph's products, which whoever
+    replays it adds to ``launches`` once per replay."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return int8_matmul_plain(x, q, s, out_dtype)
@@ -148,11 +156,15 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                                  int(store == torch.float32),
                                  torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "int8_matmul")
-    int8_matmul.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        int8_matmul.captured += 1
+    else:
+        int8_matmul.launches += 1
     return y.to(out_dtype)
 
 
 int8_matmul.launches = 0
+int8_matmul.captured = 0
 
 
 def _use_kernel(x: torch.Tensor, q: torch.Tensor) -> bool:

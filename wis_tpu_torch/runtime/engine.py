@@ -359,7 +359,7 @@ class WhisperEngine:
                             M=max_new, cap=token_cap):
                 d_audio = torch.from_numpy(np.ascontiguousarray(g_audio)).to(self.device)
                 d_ctl = torch.from_numpy(ctl).to(self.device)
-                result = prog(*weights, d_audio, d_ctl)
+                result = prog(*weights, d_audio, d_ctl, slots=loaded.prefill_slots)
                 with span("asr.readback"):
                     packed = result.cpu().numpy()
             tokens, lengths, best, lang_idx, lang_prob = unpack_asr_result(

@@ -37,6 +37,7 @@ from typing import Dict, Optional
 
 import torch
 
+from wis_tpu_torch.decoding.prefill_slots import PrefillSlots
 from wis_tpu_torch.device import DeviceLike, resolve_device
 from wis_tpu_torch.models.unimoe.config import OmniConfig, is_omni, omni_config
 from wis_tpu_torch.models.unimoe.weights import load_or_init as load_or_init_omni
@@ -82,6 +83,10 @@ class LoadedModel:
     packed: Optional[PackedDecoder] = None
     #: the size's asset directory (tokenizer, alignment heads), if any
     model_dir: Optional[str] = None
+    #: the fused programs' prompt prefills by key, each replayed from a
+    #: captured graph on the card (``decoding/prefill_slots``); filled at
+    #: first use, shared by every program of the model
+    prefill_slots: PrefillSlots = field(default_factory=PrefillSlots)
 
 
 @dataclass
@@ -221,9 +226,9 @@ class ModelRegistry:
 
     def evict(self, name: str) -> bool:
         """Drop a model from the registry; True if one was resident. Its
-        tree and the fused step's packed weights (``LoadedModel.packed``)
-        go with it: the device memory is freed once no request still holds
-        the model."""
+        tree, the fused step's packed weights (``LoadedModel.packed``) and
+        its prefill slots go with it: the device memory is freed once no
+        request still holds the model."""
         size = name.strip().lower() if is_omni(name) else resolve_model_name(name)
         with self._lock:
             return self._models.pop(size, None) is not None
