@@ -61,7 +61,8 @@ exits non-zero without printing a result:
    32 / 64 / 100 tokens plus one language-detect request — then a
    timestamps request (the grammar head at every step), a word-timestamps
    request (the alignment call), a 180 s long-form request (13 windows in
-   4 groups, the fused step at BK=20) and a coalesced batch of four;
+   4 groups, the fused step at BK=20) and a coalesced batch of four; then
+   each prefill slot's graph tally (``ops/graphs``: 256 int8 a replay);
 6. run the large-v2 encoder with the kernels and again with the plain
    functions, and compare; then under ``WIS_NO_PACKED_FLASH`` (the
    head-major kernel in every layer: bit-identical); serve one 3.84 s
@@ -83,7 +84,8 @@ exits non-zero without printing a result:
    (``stream_chunk_size=20``, ``min_audio_tokens=605``, a zero voice)
    three ways — the default path (fused step, eager epilogue), the fused
    head, and the eager ``gpt_pass`` path for its first three chunks — each
-   with the counters set to 0 just before and read just after; time the
+   with the counters set to 0 just before and read just after, and each
+   code graph's tally (``ops/graphs``: one step a replay); time the
    per-token sampling epilogue both ways;
 9. write a seeded full-width Coqui XTTS v2 ``model.pth`` under ``build/``
    (GPT, HiFi-GAN and conditioning encoder), serve it from an ``XTTSModel``
@@ -199,12 +201,13 @@ exits non-zero without printing a result:
    transcribe_omni`` at cap 128 after a warm-up dispatch that captures
    the bucket's step graph; the grouped kernel's launches counted over
    that dispatch alone (the prefill's eager launches and each step graph
-   replay's tally), 2 a layer of every forward.
+   replay's tally), 2 a layer of every forward, and the graph's tally.
 19. the fused program's prompt prefill on large-v2 at the ASR cells' two
    main keys (four windows, beam 5 and cache 128; beam 3 and cache 256),
    replayed from a slot's CUDA graph (``decoding/prefill_slots``): the
    capture's time, the replay bit for bit against the eager prefill, the
-   slot's int8 launches (8 a decoder layer, the warm-up's taken back),
+   slot's int8 launches and its graph's tally (8 a decoder layer, the
+   warm-up's taken back),
    eager and replay timed in turns, the replay's time on the card, the
    bytes a slot holds; with ``--parent``, the parent's ``generate`` against
    this tree's to the first selection, in turns.
@@ -2009,24 +2012,6 @@ def compare_pipeline_depths(torch, dev, model, counters, depths=(1, 2, 3)):
               f"(totals {', '.join(f'{t[2]:.2f}' for t in runs[d])})")
 
 
-class GrammarLaunches:
-    """``fused_logits_topk``'s grammar-mode launches as a counter."""
-
-    __name__ = "fused_logits_topk(grammar)"
-
-    @property
-    def launches(self):
-        from wis_tpu_torch.ops.fused_logits import fused_logits_topk
-
-        return fused_logits_topk.grammar_launches
-
-    @launches.setter
-    def launches(self, n):
-        from wis_tpu_torch.ops.fused_logits import fused_logits_topk
-
-        fused_logits_topk.grammar_launches = n
-
-
 def request(torch, dev, counters, path, call):
     """call() → a TranscriptionResult or a list of them, with every counter
     set to 0 just before; prints one line; → (results, {counter: launches
@@ -2053,6 +2038,15 @@ def request(torch, dev, counters, path, call):
 def expect(what, cond):
     if not cond:
         raise AssertionError(what)
+
+
+def check_graph_tallies(what, graphs, want):
+    """Each captured graph's tally (``ops/graphs.Graph.tally``: the
+    launches one replay adds) against ``want``, {entry: n}."""
+    tallies = [g.tally for g in graphs]
+    expect(f"{what}: tallies {tallies}", tallies and all(t == want for t in tallies))
+    print(f"{what}: {len(tallies)} graphs, a replay "
+          + ", ".join(f"{e.__name__} {n}" for e, n in want.items()))
 
 
 @contextlib.contextmanager
@@ -2176,6 +2170,11 @@ def serve(torch, dev, engine, counters):
            and n["fused_decode_step"] == n["fused_logits_topk"] >= 1
            and len(res) == 4 and all(1 <= t <= 32 for t in tok))
     out["coalesced"] = n
+    from wis_tpu_torch.ops.quant import int8_matmul
+
+    check_graph_tallies("prefill slots", [
+        slot.graph for slot in engine.registry.get("large").prefill_slots.slots.values()],
+        {int8_matmul: INT8_PASS})
     return out
 
 
@@ -4187,8 +4186,9 @@ def check_prefill_graphs(torch, dev, engine, parent=None):
             got = slot.run(body, prompt, xa_kv, begin_sup)
             torch.cuda.synchronize()
             capture_ms = (time.perf_counter() - t0) * 1e3
-            expect(f"{name}: {int8_matmul.launches - launches} int8 launches, tally "
-                   f"{slot.tally}", int8_matmul.launches - launches == slot.tally == 8 * L)
+            tally = slot.graph.tally[int8_matmul]
+            expect(f"{name}: {int8_matmul.launches - launches} int8 launches, tally {tally}",
+                   int8_matmul.launches - launches == tally == 8 * L)
             same = [bool(torch.equal(a, b)) for a, b in (
                 (got.first_lp, want.first_lp), (got.cache.k, want.cache.k),
                 (got.cache.v, want.cache.v), (got.anc, want.anc),
@@ -4282,6 +4282,8 @@ def check_omni_dispatch(torch, dev):
     if launched != 2 * layers * (1 + replays) or not all(tokens):
         raise AssertionError(f"omni dispatch: {launched} grouped launches for {replays} replays "
                              f"of {layers} layers, replies {tokens}")
+    check_graph_tallies("omni step slot", [loaded.slots[8].graph],
+                        {grouped_swiglu: 2 * layers})
     del engine, loaded
     torch.cuda.empty_cache()
     return dict(launches=launched, forwards=1 + replays, dispatch_ms=ms, tokens=tokens)
@@ -4386,7 +4388,8 @@ def main() -> int:
     clock.done(4)
 
     counters = (layer_norm_cuda, flash_attention_packed, flash_attention, int8_matmul,
-                ancestry_attention, fused_decode_step, fused_logits_topk, GrammarLaunches())
+                ancestry_attention, fused_decode_step, fused_logits_topk,
+                fused_logits_topk.grammar)
     served = serve(torch, dev, engine, counters)
     clock.done(5)
     check_encode(torch, dev, loaded)
@@ -4420,6 +4423,9 @@ def main() -> int:
                          chunks_out=seeded_chunks)[0]
     if not (step_n[0] == xtts.cfg.gpt.max_audio_tokens and step_n[1] == 0):
         raise AssertionError(f"default stream ran {step_n[0]} steps / {step_n[1]} heads")
+    check_graph_tallies("xtts code slots", [
+        code for slot in xtts._slots.slots for code in slot.codes.values()],
+        {fused_gpt_step: 1})
     compare_pipeline_depths(torch, dev, xtts, tts_counters)
     xtts.fused_head = True
     stream_xtts(torch, dev, xtts, tts_counters, "warm-up", max_chunks=2)

@@ -12,6 +12,8 @@ A narrow whisper (2 decoder layers, D 128, 2 heads, the real vocabulary),
 seeded int8 weights, random cross-KV over the 1500 audio positions. The
 graphs themselves run on the card: tests/test_torch_prefill_graphs.py."""
 
+import gc
+import weakref
 from types import SimpleNamespace as NS
 
 import numpy as np
@@ -167,7 +169,7 @@ def test_programs_of_one_prefill_share_a_slot():
     slot = store.get(base)
     assert all(store.get(k) is slot for k in shared)
     assert list(store.slots) == [base] and slot.graph is None and slot.key == base
-    assert slot.store is store and store.bytes == 0 and store.pool is None
+    assert slot.pools is store.pools == {} and store.bytes == 0
 
 
 def test_a_new_key_makes_a_new_slot():
@@ -181,6 +183,28 @@ def test_a_new_key_makes_a_new_slot():
     # the eager program names its prefill too, with its own cache length
     eager = build_asr_program(CFG, **{**BASE, "fused_step": False, "xa_int8": False})
     assert eager.prefill_key[3] == P + 32 and eager.prefill_key not in store.slots
+
+
+def test_an_evicted_model_frees_its_slots_without_the_collector():
+    """A model's prefill slots hold their graphs' memory pool on the card:
+    after an engine call the registry's eviction frees the model's store
+    and slots by reference counting alone, with no cycle for the garbage
+    collector to find."""
+    s = APISettings(whisper_model_default="tiny", dtype="float32", max_decode_tokens=8,
+                    beam_size=5, long_beam_size=5, fused_decode="on")
+    eng = WhisperEngine(ModelRegistry(s, "cpu"))
+    eng.transcribe(np.zeros(16000, np.float32), beam_size=5, max_tokens=2)
+    store = eng.registry.get("tiny").prefill_slots
+    held = [weakref.ref(o) for o in (store, store.get(_key()), store.get(_key(batch=1)))]
+    del store
+    collect = gc.isenabled()
+    gc.disable()
+    try:
+        assert all(r() is not None for r in held) and eng.registry.evict("tiny")
+        assert [r() for r in held] == [None] * 3
+    finally:
+        if collect:
+            gc.enable()
 
 
 @pytest.fixture(scope="module")

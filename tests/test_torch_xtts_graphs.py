@@ -5,7 +5,8 @@ bucket; whole streams of a narrow XTTS (2 layers, D 256, the real
 vocabulary and 605-code cap) with slots against the same model's eager
 device-scalar loop; two streams at once from two threads, each on its own
 slot; a slot taken after an abandoned stream; the pool's growth and
-captures; the steps a graph holds (one) and ``fused_gpt_step.launches`` at
+captures; the slots and graphs freed with their model without the garbage
+collector; the steps a graph holds (one) and ``fused_gpt_step.launches`` at
 605 a default stream; the benchmark's contract with the model under
 slots; the overflow refusal; the step's device ``pos``.
 
@@ -16,7 +17,9 @@ conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_xtts_graphs.py
 """
 
+import gc
 import threading
+import weakref
 
 import numpy as np
 import pytest
@@ -113,7 +116,7 @@ def test_replayed_chunks_match_the_host_loop(dev, case):
                   slot=slot)
     assert pool.captures == 3  # one graph a bucket
     # each graph holds one step, counted once a replay and not for the warm-up
-    assert [steps for _, steps in slot.codes.values()] == [1, 1, 1]
+    assert [g.tally[tf.fused_gpt_step] for g in slot.codes.values()] == [1, 1, 1]
     assert tf.fused_gpt_step.launches - before == sum(CHUNKS)
     assert len(got) == len(CHUNKS)
     for g, w in zip(got, want):
@@ -141,7 +144,7 @@ def test_stream_replayed_matches_eager_and_counts_605(model):
     got_audio, got_codes = _codes(model)
     assert fused_gpt_step.launches - before == 605
     assert slots.captures == 3 and len(slots.slots) == 1
-    assert all(steps == 1 for _, steps in slots.slots[0].codes.values())
+    assert all(g.tally[fused_gpt_step] == 1 for g in slots.slots[0].codes.values())
     assert torch.equal(got_codes, want_codes) and got_codes.shape == (1, 605)
     assert len(got_audio) == len(want_audio)
     assert all(np.array_equal(g, w) for g, w in zip(got_audio, want_audio))
@@ -203,6 +206,27 @@ def test_pool_gives_a_free_slot_or_a_new_one(dev):
     pool.release(a)
     assert {id(pool.acquire()), id(pool.acquire())} == {id(a), id(b)}
     assert len(pool.slots) == 2 and pool.captures == 0
+
+
+def test_a_dropped_model_frees_its_slots_without_the_collector(dev):
+    """A model's code slots hold their graphs' memory pools on the card:
+    dropping the model after a stream frees its slots and their graphs by
+    reference counting alone, with no cycle for the garbage collector to
+    find."""
+    m = _xtts(dev)
+    _codes(m, seed=33)
+    slots = m._slots
+    held = [weakref.ref(o) for o in (slots, *slots.slots, *slots.slots[0].codes.values())]
+    assert slots.captures == 3
+    torch.cuda.synchronize()
+    collect = gc.isenabled()
+    gc.disable()
+    try:
+        del m, slots
+        assert [r() for r in held] == [None] * len(held)
+    finally:
+        if collect:
+            gc.enable()
 
 
 def test_slot_refuses_a_chunk_past_its_cache(dev):

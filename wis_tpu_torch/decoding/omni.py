@@ -22,10 +22,9 @@ small launches over 28 layers, which the host takes several times longer
 to launch than the card takes to run them. A slot, one per batch bucket
 of a model, holds the KV cache and every input and output of a step at a
 fixed address and captures ``model.step`` once; the prefill writes the
-same cache eagerly. A step is then three copies in and one replay. On the
-CPU the step runs eagerly. The grouped expert kernel's launches made
-under the capture are the graph's tally (``grouped_swiglu.captured``),
-which each replay adds to ``grouped_swiglu.launches``.
+same cache eagerly. A step is then three copies in and one replay
+(``ops/graphs``: a pool a slot; each replay counts its launches). On the
+CPU the step runs eagerly.
 
 Spans (``utils/timing``): ``omni.encode``, ``omni.prefill``, ``omni.decode``
 and inside it one ``omni.step`` per decode step (the host launching the
@@ -35,7 +34,6 @@ step), ``omni.sync`` for the end-flag reads (counted), and
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, Sequence
 
 import numpy as np
@@ -46,15 +44,12 @@ from wis_tpu_torch.audio.mel import N_SAMPLES, log_mel
 from wis_tpu_torch.models.unimoe import model as M
 from wis_tpu_torch.models.unimoe.config import OmniConfig
 from wis_tpu_torch.models.unimoe.moe import N_CODES, counters
-from wis_tpu_torch.ops.moe_experts import grouped_swiglu
+from wis_tpu_torch.ops.graphs import GraphPool
 from wis_tpu_torch.utils.timing import count, span
 
 #: decode steps between two host reads of the rows' end flags
 SYNC_EVERY = 16
 N_COUNTERS = 8
-
-#: one capture at a time in the process
-_CAPTURE = threading.Lock()
 
 
 class StepSlot:
@@ -71,10 +66,8 @@ class StepSlot:
         self.pos = torch.zeros(1, dtype=torch.long, device=device)
         self.valid = torch.zeros(batch, dtype=torch.bool, device=device)
         self.acc = torch.zeros(N_CODES + 1, dtype=torch.int64, device=device)
-        self.out = None
+        self.graphs = GraphPool(device)
         self.graph = None
-        #: the grouped expert kernel's launches in one replay of the graph
-        self.tally = 0
 
     def _step(self) -> torch.Tensor:
         return M.step(self.params, self.tok, self.pos, self.cache, self.cfg, self.tables,
@@ -88,31 +81,17 @@ class StepSlot:
         if self.tok.device.type != "cuda":
             return self._step()
         if self.graph is None:
-            self._capture()
-        self.graph.replay()
-        grouped_swiglu.launches += self.tally
-        return self.out
+            count("omni.capture")
+            with span("omni.capture"):
+                self.graph = self.graphs.capture(self._step, self._warm)
+        return self.graph.replay()
 
-    def _capture(self) -> None:
-        """One eager step on a side stream (kernels built, cuBLAS up), then
-        the capture. The eager step writes the cache column at ``pos``, as
-        the replay that follows does again; its routing counts are taken
-        back."""
-        count("omni.capture")
-        with span("omni.capture"), _CAPTURE:
-            before = self.acc.clone()
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self._step()
-                self.acc.copy_(before)
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            before = grouped_swiglu.captured
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self.out = self._step()
-            self.tally = grouped_swiglu.captured - before
-            self.graph = graph
+    def _warm(self) -> None:
+        """The capture's eager step: it writes the cache column at ``pos``, as
+        the replay does again; its routing counts are taken back."""
+        acc = self.acc.clone()
+        self._step()
+        self.acc.copy_(acc)
 
 
 @torch.inference_mode()

@@ -27,24 +27,13 @@ packed weights are; ``PrefillSlot.bytes`` is what a slot added on the card.
 The slots of a model serve one call at a time: the call holds the store's
 ``lock`` from its copies in until its decode loop, which reads the outputs,
 has been launched. (In the engine every program runs under ``device_lock``
-besides.) Replays run on the caller's current stream. So a graph's outputs
-are dead once its call has queued its last read of them, and the store's
-graphs share one memory pool: a capture takes over the memory that the
-captures before it freed (their intermediates), never their outputs, and a
-replay that writes there again can only overwrite what an earlier call is
-done with. The pool holds the largest capture's transient peak once, and
-every slot's outputs.
-
-At a key's first use the slot captures, on the store's side stream and one
-capture at a time in the process: one eager prefill over the slot's inputs (it builds
-the kernels and brings cuBLAS up on that stream; its outputs are dropped),
-then the capture in ``thread_local`` mode; the call then replays. The int8
-products launched under the capture are counted by ``int8_matmul`` in its
-``captured`` tally; the graph keeps that number, the warm-up's products are
-taken back from ``int8_matmul.launches`` by it, and each replay adds it
-there again. The warm-up's products share the card's split-K counters
-(``ops/quant``) with whatever else the process launches meanwhile: the
-engine captures under its ``device_lock``, so no other ASR product runs.
+besides.) So a graph's outputs are dead once its call has queued its last
+read of them, and the store's graphs share one ``ops/graphs.GraphPool``: it
+holds the largest capture's transient peak once, and every slot's outputs.
+A key's first call captures its slot's graph, warmed up by one eager
+prefill, whose int8 products share the card's split-K counters
+(``ops/quant``) with whatever else the process launches: the engine
+captures under its ``device_lock``, so no other ASR product runs.
 
 The call's record (``utils/timing``) counts ``asr.prefill_graph`` (a
 prefill replayed) and ``asr.prefill_captures``; the eager prefill of
@@ -58,27 +47,20 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from wis_tpu_torch.ops.quant import int8_matmul
+from wis_tpu_torch.ops.graphs import Graph, GraphPool
 from wis_tpu_torch.utils.timing import count
-
-#: one capture at a time in the process, so ``int8_matmul.captured`` counts
-#: that capture's products alone
-_CAPTURE = threading.Lock()
 
 
 class PrefillSlot:
-    """One prefill key's inputs, graph and outputs (see the module)."""
+    """One prefill key's inputs and graph (see the module)."""
 
-    def __init__(self, store: "PrefillSlots", key: tuple):
-        self.store, self.key = store, key
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        #: (prompt, xa_k, xa_v): the graph's inputs, copied in at each call
+    def __init__(self, key: tuple, pools: Dict[torch.device, GraphPool]):
+        #: the store's ``pools``, not the store: no cycle keeps them on the card
+        self.key, self.pools = key, pools
+        self.graph: Optional[Graph] = None
+        #: (prompt, xa_k, xa_v, first token's mask): the graph's inputs, the
+        #: first three copied in at each call, the mask (the key's own) once
         self.inputs: Tuple[torch.Tensor, ...] = ()
-        #: the first token's mask: the key's own, copied in once
-        self.begin_sup: Optional[torch.Tensor] = None
-        self.out = None
-        #: int8 products one replay launches
-        self.tally = 0
         #: device bytes the slot added: its inputs and what its capture grew
         #: the store's memory pool by
         self.bytes = 0
@@ -88,41 +70,16 @@ class PrefillSlot:
         slot's copies of its arguments → the graph's outputs, which the
         slot's next call overwrites."""
         if self.graph is None:
-            self._capture(body, prompt, xa_kv, begin_sup)
+            self.inputs = p, xk, xv, bs = tuple(t.clone() for t in (prompt, *xa_kv, begin_sup))
+            graphs = self.pools.setdefault(prompt.device, GraphPool(prompt.device))
+            self.graph = graphs.capture(lambda: body(p, (xk, xv), bs))
+            self.bytes = self.graph.bytes + sum(t.numel() * t.element_size() for t in self.inputs)
+            count("asr.prefill_captures")
         else:
             for mine, theirs in zip(self.inputs, (prompt, *xa_kv)):
                 mine.copy_(theirs)
-        self.graph.replay()
-        int8_matmul.launches += self.tally
         count("asr.prefill_graph")
-        return self.out
-
-    def _capture(self, body: Callable, prompt, xa_kv, begin_sup) -> None:
-        dev, store = prompt.device, self.store
-        if store.pool is None:
-            store.pool, store.side = torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev)
-        with _CAPTURE:
-            self.inputs = (prompt.clone(), xa_kv[0].clone(), xa_kv[1].clone())
-            self.begin_sup = bs = begin_sup.clone()
-            p, xk, xv = self.inputs
-            cur, side = torch.cuda.current_stream(dev), store.side
-            side.wait_stream(cur)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.stream(side):
-                body(p, (xk, xv), bs)
-                before, reserved = int8_matmul.captured, torch.cuda.memory_reserved(dev)
-                graph.capture_begin(pool=store.pool, capture_error_mode="thread_local")
-                try:
-                    out = body(p, (xk, xv), bs)
-                finally:
-                    graph.capture_end()
-                self.tally = int8_matmul.captured - before
-                int8_matmul.launches -= self.tally  # the warm-up's products are no prefill
-                pool = torch.cuda.memory_reserved(dev) - reserved
-            cur.wait_stream(side)
-            self.out, self.graph = out, graph
-            self.bytes = pool + sum(t.numel() * t.element_size() for t in (*self.inputs, bs))
-        count("asr.prefill_captures")
+        return self.graph.replay()
 
 
 class PrefillSlots:
@@ -133,17 +90,15 @@ class PrefillSlots:
         self.slots: Dict[tuple, PrefillSlot] = {}
         #: held by a call from its slot's copies in to its decode loop's launch
         self.lock = threading.Lock()
-        #: the graphs' shared memory pool and the stream they are captured
-        #: on (the allocator reuses a freed block on its own stream only),
-        #: made at the first capture
-        self.pool = None
-        self.side: Optional[torch.cuda.Stream] = None
+        #: device → the pool every slot of the model captures into, made at
+        #: the first capture
+        self.pools: Dict[torch.device, GraphPool] = {}
 
     def get(self, key: tuple) -> PrefillSlot:
         """``key``'s slot, made at the first ask; the caller holds ``lock``."""
         slot = self.slots.get(key)
         if slot is None:
-            slot = self.slots[key] = PrefillSlot(self, key)
+            slot = self.slots[key] = PrefillSlot(key, self.pools)
         return slot
 
     @property

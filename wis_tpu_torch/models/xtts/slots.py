@@ -24,19 +24,10 @@ at the first use of each bucket; ``release()`` takes it back. The pool
 keeps every slot it made, each with its caches and graphs (PERF.md gives
 the memory a slot holds). Replays run on the caller's current CUDA stream,
 where the chunks of every stream are queued, so a slot left by an
-abandoned stream may be taken at once: its queued work runs first.
-
-Capture runs on the pool's side stream, one at a time in the process: first
-one code eagerly on copies of the slot's state (it brings up cuBLAS and
-the kernels' attributes there, and writes only the cache column that the
-chunk's first code writes again), then the capture in ``thread_local``
-mode, so the threads of other streams go on launching and taking slots.
-The steps launched under the capture are counted by ``fused_gpt_step``
-in its ``captured`` tally; the graph keeps that number, the warm-up's
-steps are taken back from ``fused_gpt_step.launches`` by it, and each
-replay adds it there again. A slot's graphs share one memory pool: they
-run one after another on one stream, and nothing they allocate outlives
-a code.
+abandoned stream may be taken at once: its queued work runs first. Each
+slot owns an ``ops/graphs.GraphPool``, as its graphs run one after another
+on one stream; a capture warms up on copies of the slot's state, writing
+only the cache column that the chunk's first code writes again.
 
 The chunk's own record (``utils/timing``) counts ``tts.graph_codes`` (codes
 replayed) and ``tts.graph_captures``.
@@ -45,25 +36,19 @@ replayed) and ``tts.graph_captures``.
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
 from wis_tpu_torch.models.xtts.gpt import CodeState, GPTConfig, SampleKnobs, decode_code
-from wis_tpu_torch.ops.fused_gpt import fused_gpt_step
+from wis_tpu_torch.ops.graphs import Graph, GraphPool
 from wis_tpu_torch.utils.timing import count
-
-#: one capture at a time in the process, so ``fused_gpt_step.captured``
-#: counts that capture's steps alone
-_CAPTURE = threading.Lock()
 
 
 class CodeSlot:
     """One stream's static buffers and graphs (see the module)."""
 
-    def __init__(self, pool: "CodeSlots"):
-        self.pool = pool
-        g, dev = pool.cfg, pool.device
+    def __init__(self, g: GPTConfig, dev: torch.device, dtype: torch.dtype):
         m, v = g.max_audio_tokens, g.n_audio_vocab
         self.state = CodeState(
             tok=torch.zeros((1,), dtype=torch.long, device=dev),
@@ -75,12 +60,12 @@ class CodeSlot:
             knobs=SampleKnobs.of(1.0, 1, 1.0, 1.0, v, dev),
         )
         self.gumbel = torch.zeros((m, 1, v), dtype=torch.float32, device=dev)
-        self.latents = torch.zeros((1, m, g.d_model), dtype=pool.dtype, device=dev)
+        self.latents = torch.zeros((1, m, g.d_model), dtype=dtype, device=dev)
         #: cache width → (kc, vc), each (L, D, width) bf16
         self.caches: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
-        #: (cache width, do_sample) → (a graph's replay, the steps it launches)
-        self.codes: Dict[Tuple[int, bool], Tuple[Callable[[], None], int]] = {}
-        self.mempool = torch.cuda.graph_pool_handle()
+        #: (cache width, do_sample) → the graph of one code
+        self.codes: Dict[Tuple[int, bool], Graph] = {}
+        self.graphs = GraphPool(dev)
 
     def _cache(self, like: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         width = like.shape[-1]
@@ -116,25 +101,32 @@ class CodeSlot:
         self.gumbel[hist_len:hist_len + chunk].copy_(gumbel)
         code = self.codes.get((width, do_sample))
         if code is None:
-            code = self.codes[(width, do_sample)] = self.pool.capture(
-                self, lambda s, gum, lat: self._body(params, packed, step_fn, skc, svc, s, gum,
-                                                     lat, cfg, do_sample))
-        replay, steps = code
-        for _ in range(chunk):
-            replay()
-        fused_gpt_step.launches += steps * chunk
+            code = self.codes[(width, do_sample)] = self._capture(params, packed, step_fn, skc,
+                                                                  svc, cfg, do_sample)
+        code.replay(chunk)
         count("tts.graph_codes", chunk)
         end = hist_len + chunk
         return (st.history[:, hist_len:end].clone(), self.latents[:, hist_len:end].clone(),
                 skc, svc, pos + chunk, st.history, end, st.done.clone())
 
-    def _body(self, params, packed, step_fn, kc, vc, st: CodeState, gumbel, latents, cfg,
-              do_sample: bool) -> None:
-        """One code over ``st``: its gumbel row and latent row at hist_len."""
-        i = st.hist_len.clamp(max=latents.shape[1] - 1).view(1)
-        _, hidden = decode_code(params, packed, step_fn, kc, vc, st, gumbel.index_select(0, i)[0],
-                                cfg=cfg, batch=1, do_sample=do_sample)
-        latents.index_copy_(1, i, hidden[:, None])
+    def _capture(self, params, packed, step_fn, kc, vc, cfg, do_sample: bool) -> Graph:
+        """One code over the slot's buffers as a graph, warmed up on copies of
+        its state and scratch latents."""
+
+        def code(st: CodeState, latents) -> None:  # its gumbel and latent rows at hist_len
+            i = st.hist_len.clamp(max=latents.shape[1] - 1).view(1)
+            _, hidden = decode_code(params, packed, step_fn, kc, vc, st,
+                                    self.gumbel.index_select(0, i)[0], cfg=cfg, batch=1,
+                                    do_sample=do_sample)
+            latents.index_copy_(1, i, hidden[:, None])
+
+        st = self.state
+        scratch = st._replace(tok=st.tok.clone(), pos=st.pos.clone(), hist_len=st.hist_len.clone(),
+                              done=st.done.clone(), history=st.history.clone())
+        graph = self.graphs.capture(lambda: code(st, self.latents),
+                                    lambda: code(scratch, torch.empty_like(self.latents)))
+        count("tts.graph_captures")
+        return graph
 
 
 class CodeSlots:
@@ -145,16 +137,14 @@ class CodeSlots:
         if self.device.type != "cuda":
             raise ValueError(f"stream slots replay CUDA graphs: no slots on {self.device}")
         self.slots: List[CodeSlot] = []
-        self.captures = 0
         self._free: List[CodeSlot] = []
         self._lock = threading.Lock()  # the slots and the free list
-        self._side = torch.cuda.Stream(self.device)
 
     def acquire(self) -> CodeSlot:
         with self._lock:
             if self._free:
                 return self._free.pop()
-            slot = CodeSlot(self)
+            slot = CodeSlot(self.cfg, self.device, self.dtype)
             self.slots.append(slot)
             return slot
 
@@ -162,30 +152,6 @@ class CodeSlots:
         with self._lock:
             self._free.append(slot)
 
-    def capture(self, slot: CodeSlot, body) -> Tuple[Callable[[], None], int]:
-        """One code of ``slot`` captured as a CUDA graph from ``body(state,
-        gumbel, latents)`` over the slot's buffers. → (the graph's replay,
-        the fused steps it launches)."""
-        st = slot.state
-        with _CAPTURE:
-            side, cur = self._side, torch.cuda.current_stream(self.device)
-            side.wait_stream(cur)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.stream(side):
-                scratch = st._replace(tok=st.tok.clone(), pos=st.pos.clone(),
-                                      hist_len=st.hist_len.clone(), done=st.done.clone(),
-                                      history=st.history.clone())
-                body(scratch, slot.gumbel, torch.empty_like(slot.latents))
-                before = fused_gpt_step.captured
-                graph.capture_begin(pool=slot.mempool, capture_error_mode="thread_local")
-                try:
-                    body(st, slot.gumbel, slot.latents)
-                finally:
-                    graph.capture_end()
-                steps = fused_gpt_step.captured - before
-                fused_gpt_step.launches -= steps  # the warm-up's steps are no code
-            cur.wait_stream(side)
-            with self._lock:
-                self.captures += 1
-        count("tts.graph_captures")
-        return graph.replay, steps
+    @property
+    def captures(self) -> int:  # the code graphs its slots have captured
+        return sum(len(s.codes) for s in list(self.slots))

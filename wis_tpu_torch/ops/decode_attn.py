@@ -28,6 +28,7 @@ import torch
 
 from wis_tpu_torch.ops import _build
 from wis_tpu_torch.ops.attention import NEG_INF
+from wis_tpu_torch.ops.graphs import launched
 
 #: widest head the kernel takes (a lane holds a quarter of a row's d values)
 MAX_HEAD_DIM = 256
@@ -93,7 +94,7 @@ def ancestry_attention(q, k_cache, v_cache, anc, pos: int) -> torch.Tensor:
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(rc, "ancestry_attention")
-    ancestry_attention.launches += 1
+    launched(ancestry_attention)
     return out
 
 

@@ -24,6 +24,7 @@ import torch
 
 from wis_tpu_torch.ops import _build
 from wis_tpu_torch.ops.attention import merge_heads, mha, qkv_heads
+from wis_tpu_torch.ops.graphs import launched
 
 #: widest head the kernel takes (the widest wgmma tile, 256 columns)
 MAX_HEAD_DIM = 256
@@ -95,7 +96,7 @@ def flash_attention_packed(
         return out
     _launch("flash_attention_packed", _build.kernels().wis_flash_attention_packed,
             q, k, v, out, b, t, d, n_heads, float((d // n_heads) ** -0.5))
-    flash_attention_packed.launches += 1
+    launched(flash_attention_packed)
     return out
 
 
@@ -121,7 +122,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         return out
     _launch("flash_attention", _build.kernels().wis_flash_attention,
             q, k, v, out, b, h, t, dh, float(dh ** -0.5))
-    flash_attention.launches += 1
+    launched(flash_attention)
     return out
 
 

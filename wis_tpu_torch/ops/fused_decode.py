@@ -41,6 +41,7 @@ import torch
 from wis_tpu_torch.models.whisper.config import WhisperConfig
 from wis_tpu_torch.ops import _build
 from wis_tpu_torch.ops.gelu import gelu_tanh
+from wis_tpu_torch.ops.graphs import launched
 from wis_tpu_torch.ops.layernorm import layer_norm_plain
 
 NEG = -1e30
@@ -340,7 +341,7 @@ def fused_decode_step(
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "fused_decode_step")
-    fused_decode_step.launches += 1
+    launched(fused_decode_step)
     return x, k_cache, v_cache
 
 

@@ -29,9 +29,7 @@ the VMEM gate ``fused_gpt_vmem_bytes``.
 ``pos``, the cache column the step writes, is a host int or a 0-dim int32
 tensor on the card, which the kernels read when they run: one CUDA graph
 captured from the step then serves every position (``models/xtts/
-slots.py``). A step launched while its stream is being captured is
-counted in ``fused_gpt_step.captured`` instead: the graph's steps, which
-whoever replays it adds to ``launches`` once per replay.
+slots.py``); a replayed step counts as a launch (``ops/graphs``).
 """
 
 from __future__ import annotations
@@ -49,6 +47,7 @@ from wis_tpu_torch.ops.fused_decode import (
     mlp_residual_plain,
     self_attention_plain,
 )
+from wis_tpu_torch.ops.graphs import launched
 from wis_tpu_torch.ops.layernorm import layer_norm_plain
 
 # chunk-slot layout along the packed axis
@@ -212,15 +211,11 @@ def fused_gpt_step(cfg: GPTConfig, packed: PackedGPT, x_emb, k_cache, v_cache, s
             pos.data_ptr() if on_device else None,
         )
     _build.check(rc, "fused_gpt_step")
-    if torch.cuda.is_current_stream_capturing():
-        fused_gpt_step.captured += 1
-    else:
-        fused_gpt_step.launches += 1
+    launched(fused_gpt_step)
     return x, k_cache, v_cache
 
 
 fused_gpt_step.launches = 0
-fused_gpt_step.captured = 0
 
 
 def build_fused_gpt_step(cfg: GPTConfig, *, bk: int, t_cache: int):

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from wis_tpu_torch.models.xtts.gpt import GPTConfig, _ln
 from wis_tpu_torch.ops import _build
+from wis_tpu_torch.ops.graphs import launched
 
 NEG = -1e30
 BIG = 1e30
@@ -167,7 +168,7 @@ def fused_gpt_head(x, ln4, head_w, head_b, hist, gum, knobs, *, cfg: GPTConfig,
             cfg.stop_audio_token, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(rc, "fused_gpt_head")
-    fused_gpt_head.launches += 1
+    launched(fused_gpt_head)
     return tok, hidden, logits
 
 

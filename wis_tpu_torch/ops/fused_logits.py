@@ -19,7 +19,7 @@ logsumexp) — the TPU kernel's force rule.
 
 ``fused_logits_topk`` launches the kernels for CUDA tensors and counts one
 launch per head call in ``fused_logits_topk.launches`` (and the grammar
-mode's again in ``fused_logits_topk.grammar_launches``); it takes the plain
+mode's again in ``fused_logits_topk.grammar.launches``); it takes the plain
 version, ``fused_logits_topk_plain``, only for tensors on the CPU.
 """
 
@@ -31,6 +31,7 @@ import torch
 
 from wis_tpu_torch.models.whisper.config import WhisperConfig
 from wis_tpu_torch.ops import _build
+from wis_tpu_torch.ops.graphs import launched
 from wis_tpu_torch.ops.layernorm import layer_norm_plain
 from wis_tpu_torch.ops.quant import _split_counters
 
@@ -162,13 +163,15 @@ def fused_logits_topk(x, ln_g, ln_b, emb: Emb, sup, *, k: int, full_lse: bool = 
             torch.cuda.current_stream(dev).cuda_stream, _split_counters(dev, 1).data_ptr(),
         )
     _build.check(rc, "fused_logits_topk")
-    fused_logits_topk.launches += 1
-    fused_logits_topk.grammar_launches += grammar
+    launched(fused_logits_topk)
+    if grammar:
+        launched(fused_logits_topk.grammar)
     return vals, tok, lse
 
 
 fused_logits_topk.launches = 0
-fused_logits_topk.grammar_launches = 0
+#: the grammar mode's launches, counted again as an entry of their own
+fused_logits_topk.grammar = type("fused_logits_topk(grammar)", (), {"launches": 0})
 
 
 def build_fused_logits_topk(

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from wis_tpu_torch.ops import _build
+from wis_tpu_torch.ops.graphs import launched
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -71,7 +72,7 @@ def layer_norm_cuda(
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(rc, "layer_norm_cuda")
-    layer_norm_cuda.launches += 1
+    launched(layer_norm_cuda)
     return y
 
 

@@ -36,9 +36,7 @@ On the card (``grouped_swiglu`` with a CUDA tensor):
 Bound: at decode (≤ 16 pairs) the weights of the experts touched, 407 MB
 an expert in bf16, streamed once: HBM bytes. In the prefill (thousands of
 rows an expert) the products: tensor-core operations. ``launches`` counts
-the kernel launches; a launch made while its stream is captured into a
-CUDA graph counts in ``captured`` instead, and whoever replays the graph
-adds its tally to ``launches`` once a replay (``decoding/omni.StepSlot``).
+the kernel launches, replayed ones included (``ops/graphs``).
 The kernels are built at the first launch, never when this module is
 imported.
 """
@@ -49,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from wis_tpu_torch.ops import _build
+from wis_tpu_torch.ops.graphs import launched
 
 
 def grouped_swiglu_plain(h: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -127,13 +126,9 @@ def grouped_swiglu(h: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                               order.data_ptr(), counts.data_ptr(), starts.data_ptr(),
                               wts.data_ptr(), n, e_num, d, f, k_slots, split, stream)
         _build.check(rc, "moe_down")
-    if torch.cuda.is_current_stream_capturing():
-        grouped_swiglu.captured += 2
-    else:
-        grouped_swiglu.launches += 2
+    launched(grouped_swiglu, 2)
     y = part.sum(0) if split > 1 else part[0]
     return y.view(n, k_slots, d).sum(1)
 
 
 grouped_swiglu.launches = 0
-grouped_swiglu.captured = 0

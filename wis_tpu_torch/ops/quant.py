@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Union
 import torch
 
 from wis_tpu_torch.ops import _build
+from wis_tpu_torch.ops.graphs import launched
 
 QuantLeaf = Dict[str, torch.Tensor]
 Weight = Union[torch.Tensor, QuantLeaf]
@@ -121,10 +122,8 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     per call (at most 64 rows, K split over the SMs, the splits summed in
     the same launch); CPU tensors run the plain version. The kernel stores
     bf16 for a bf16 ``out_dtype`` (default x's dtype) and f32 for any
-    other, which is then cast. Launches count in ``int8_matmul.launches``;
-    one made while its stream is being captured counts in
-    ``int8_matmul.captured`` instead: the graph's products, which whoever
-    replays it adds to ``launches`` once per replay."""
+    other, which is then cast. Launches count in ``int8_matmul.launches``,
+    replayed ones included (``ops/graphs``)."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return int8_matmul_plain(x, q, s, out_dtype)
@@ -156,15 +155,11 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                                  int(store == torch.float32),
                                  torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "int8_matmul")
-    if torch.cuda.is_current_stream_capturing():
-        int8_matmul.captured += 1
-    else:
-        int8_matmul.launches += 1
+    launched(int8_matmul)
     return y.to(out_dtype)
 
 
 int8_matmul.launches = 0
-int8_matmul.captured = 0
 
 
 def _use_kernel(x: torch.Tensor, q: torch.Tensor) -> bool:
