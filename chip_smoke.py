@@ -61,8 +61,10 @@ exits non-zero without printing a result:
    32 / 64 / 100 tokens plus one language-detect request — then a
    timestamps request (the grammar head at every step), a word-timestamps
    request (the alignment call), a 180 s long-form request (13 windows in
-   4 groups, the fused step at BK=20) and a coalesced batch of four; then
-   each prefill slot's graph tally (``ops/graphs``: 256 int8 a replay);
+   4 groups, the fused step at BK=20) and a coalesced batch of four (the
+   product epilogue, ``ops/bias_act``, 162 an encoder call, 32 a cross-KV
+   and 224 a decoder pass); then each prefill slot's graph tally
+   (``ops/graphs``: 256 int8 and 224 epilogues a replay);
 6. run the large-v2 encoder with the kernels and again with the plain
    functions, and compare; then under ``WIS_NO_PACKED_FLASH`` (the
    head-major kernel in every layer: bit-identical); serve one 3.84 s
@@ -207,10 +209,21 @@ exits non-zero without printing a result:
    replayed from a slot's CUDA graph (``decoding/prefill_slots``): the
    capture's time, the replay bit for bit against the eager prefill, the
    slot's int8 launches and its graph's tally (8 a decoder layer, the
-   warm-up's taken back),
+   warm-up's taken back; 7 epilogues a decoder layer),
    eager and replay timed in turns, the replay's time on the card, the
    bytes a slot holds; with ``--parent``, the parent's ``generate`` against
    this tree's to the first selection, in turns.
+20. the product epilogue (``ops/bias_act``, ``csrc/bias_act.cu``, new: no
+   TPU kernel) at a window's three shapes (o and w2 with the residual, w1
+   with the GELU, the stem's f32 conv1 product with the GELU): held to the
+   parent's chain (``bias_act_plain``), timed with it and its bound in
+   turns parent chain / kernel / kernel / parent chain; the large-v2
+   encoder's card time a window at 1, 2 and 4 windows in turns parent /
+   change / change / parent (with ``--parent`` that checkout's encoder,
+   else this one on the plain chain), its output against the parent's,
+   162 epilogues an encoder call and 32 a cross-KV; the four fused beam-5
+   requests of phase 5 with the kernel and on the parent's chain, the same
+   text.
 
 Each phase prints its seconds as it ends. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -250,6 +263,11 @@ MIN_LN, MIN_FLASH = 65, 32
 #: and the prompt prefill's 8 per decoder layer), and of one more decoder
 #: pass (language detection, an eager decode step, the alignment pass)
 INT8_CALL, INT8_PASS = 320, 256
+#: epilogue (``ops/bias_act``) launches of one large-v2 encoder call (the
+#: stem's two and q, v, o, w1, w2 a layer), one cross-KV projection (the v
+#: bias a layer) and one decoder pass (self q, v, o, cross q, o, w1, w2 a
+#: layer)
+EPI_ENCODE, EPI_XKV, EPI_PASS = 162, 32, 224
 #: the XTTS stream: ~200 characters of English, the reference's chunk size,
 #: and a token floor at the 605-token cap, so the random-weight GPT runs to
 #: the cap whatever it samples (below the cap, whether it stops in the last
@@ -2079,10 +2097,13 @@ def serve(torch, dev, engine, counters):
     def transcribe(ms, seed, **kw):
         return lambda: engine.transcribe(_audio_i16(ms, seed), beam_size=5, **kw)
 
-    def encoder_runs(n, groups=1):
-        expect(f"{groups} encoder calls: {n}",
+    def encoder_runs(n, groups=1, passes=1):
+        # and the product epilogues of the encoder calls, their cross-KV
+        # and the decoder passes
+        expect(f"{groups} encoder calls, {passes} decoder passes: {n}",
                n["layer_norm_cuda"] == MIN_LN * groups and n["flash_attention_packed"] == MIN_FLASH * groups
-               and n["flash_attention"] == 0)
+               and n["flash_attention"] == 0
+               and n["bias_act"] == (EPI_ENCODE + EPI_XKV) * groups + EPI_PASS * passes)
 
     # the eager decoder: ancestry_attention once per layer and step,
     # int8_matmul for the 64 cross-KV, the 256 prefill and 256 per step
@@ -2091,7 +2112,7 @@ def serve(torch, dev, engine, counters):
     res, n, tok = request(torch, dev, counters, "eager request 3.84s beam5 cap32",
                           transcribe(3840, 0, max_tokens=32))
     steps = n["ancestry_attention"] // 32
-    encoder_runs(n)
+    encoder_runs(n, passes=1 + steps)
     expect(f"eager launches {n}", n["ancestry_attention"] == 32 * steps and steps >= tok[0] - 1
            and n["int8_matmul"] == INT8_CALL + INT8_PASS * steps
            and n["fused_decode_step"] == n["fused_logits_topk"] == 0)
@@ -2108,7 +2129,7 @@ def serve(torch, dev, engine, counters):
         res, n, tok = request(
             torch, dev, counters, f"fused request {ms / 1000:.2f}s beam5 cap{cap} detect={detect}",
             transcribe(ms, i, max_tokens=cap, detect_language=detect))
-        encoder_runs(n)
+        encoder_runs(n, passes=1 + detect)
         expect(f"fused launches {n}", n["fused_decode_step"] == n["fused_logits_topk"] >= max(1, tok[0] - 1)
                and n["int8_matmul"] == INT8_CALL + INT8_PASS * detect
                and n["ancestry_attention"] == n["fused_logits_topk(grammar)"] == 0)
@@ -2134,7 +2155,7 @@ def serve(torch, dev, engine, counters):
     engine.transcribe(_audio_i16(1000, 97), beam_size=5, max_tokens=4, word_timestamps=True)
     res, n, tok = request(torch, dev, counters, "word-timestamps request 3.84s beam5 cap32",
                           transcribe(3840, 11, max_tokens=32, word_timestamps=True))
-    encoder_runs(n, groups=2)
+    encoder_runs(n, groups=2, passes=2)
     expect(f"word-timestamp launches {n}", n["int8_matmul"] == 2 * INT8_CALL)
     expect(f"words {res[0].words}", bool(res[0].words))
     print(f"word-timestamps request: alignment pass int8_matmul {n['int8_matmul'] - INT8_CALL} "
@@ -2148,7 +2169,7 @@ def serve(torch, dev, engine, counters):
     res, n, tok = request(torch, dev, counters, "long-form request 180s beam5 cap64",
                           transcribe(180000, 12, max_tokens=64))
     groups = -(-13 // s.concurrent_gpu_chunks)
-    encoder_runs(n, groups)
+    encoder_runs(n, groups, passes=groups)
     expect(f"long-form launches {n}", n["int8_matmul"] == INT8_CALL * groups
            and n["fused_decode_step"] == n["fused_logits_topk"] >= groups)
     keys = [k for k in engine._programs if k[-1] is True]  # (…, n_samples, chunked)
@@ -2170,12 +2191,28 @@ def serve(torch, dev, engine, counters):
            and n["fused_decode_step"] == n["fused_logits_topk"] >= 1
            and len(res) == 4 and all(1 <= t <= 32 for t in tok))
     out["coalesced"] = n
+    from wis_tpu_torch.ops.bias_act import bias_act
     from wis_tpu_torch.ops.quant import int8_matmul
 
     check_graph_tallies("prefill slots", [
         slot.graph for slot in engine.registry.get("large").prefill_slots.slots.values()],
-        {int8_matmul: INT8_PASS})
+        {int8_matmul: INT8_PASS, bias_act: EPI_PASS})
     return out
+
+
+@contextlib.contextmanager
+def plain_epilogue():
+    """The Whisper model's product epilogues as the parent ran them: the
+    plain chain (``ops/bias_act.bias_act_plain``, held bit for bit to the
+    parent's code by tests/test_torch_bias_act.py) in place of the
+    kernel."""
+    from wis_tpu_torch.models.whisper import model as model_mod
+    from wis_tpu_torch.models.whisper import stem as stem_mod
+    from wis_tpu_torch.ops.bias_act import bias_act_plain
+
+    with mock.patch.object(model_mod, "bias_act", bias_act_plain), \
+            mock.patch.object(stem_mod, "bias_act", bias_act_plain):
+        yield
 
 
 def encode_three_ways(torch, dev, loaded, counters=()):
@@ -2203,7 +2240,7 @@ def encode_three_ways(torch, dev, loaded, counters=()):
             c.launches = 0
         got = model_mod.encode(loaded.params, mel, cfg).float()
         launched = [c.launches for c in counters]
-        with plain_ln, plain_attn:
+        with plain_ln, plain_attn, plain_epilogue():
             ref = model_mod.encode(loaded.params, mel, cfg).float()
             exact = model_mod.encode({"encoder": f32(loaded.params["encoder"])}, mel, cfg)
     torch.cuda.synchronize()
@@ -4147,6 +4184,7 @@ def check_prefill_graphs(torch, dev, engine, parent=None):
     from wis_tpu_torch.decoding.prefill_slots import PrefillSlots
     from wis_tpu_torch.models.whisper.model import cross_kv, encode
     from wis_tpu_torch.models.whisper.tokenizer import build_prompt
+    from wis_tpu_torch.ops.bias_act import bias_act
     from wis_tpu_torch.ops.quant import int8_matmul
 
     loaded = engine.registry.get("large")
@@ -4189,6 +4227,8 @@ def check_prefill_graphs(torch, dev, engine, parent=None):
             tally = slot.graph.tally[int8_matmul]
             expect(f"{name}: {int8_matmul.launches - launches} int8 launches, tally {tally}",
                    int8_matmul.launches - launches == tally == 8 * L)
+            expect(f"{name}: epilogue tally {slot.graph.tally.get(bias_act)}",
+                   slot.graph.tally.get(bias_act) == 7 * L)
             same = [bool(torch.equal(a, b)) for a, b in (
                 (got.first_lp, want.first_lp), (got.cache.k, want.cache.k),
                 (got.cache.v, want.cache.v), (got.anc, want.anc),
@@ -4289,6 +4329,161 @@ def check_omni_dispatch(torch, dev):
     return dict(launches=launched, forwards=1 + replays, dispatch_ms=ms, tokens=tokens)
 
 
+#: phase 20's epilogue cases, a window's shapes: (rows, cols, product
+#: dtype, GELU, residual) — o and w2 (bias + residual), w1 (bias + GELU),
+#: conv1 (the stem's f32 product + GELU)
+EPILOGUE_CASES = ((1500, 1280, "bfloat16", False, True), (1500, 5120, "bfloat16", True, False),
+                  (3000, 1280, "float32", True, False))
+
+
+def epilogue_agrees(torch, got, want, gelu):
+    """(share of the elements that differ, largest difference in bf16
+    ulps): equal bits, but where the GELU ran a share below 1e-4 may differ
+    by one ulp (the two builds' tanhf); raises past that."""
+    diff = got.float() != want.float()
+    share = float(diff.float().mean())
+    ulps = float(((got.float() - want.float()).abs() / _bf16_ulp(want))[diff].max()) \
+        if share else 0.0
+    expect(f"epilogue: {share:.3e} of the elements differ, by up to {ulps} ulp",
+           share == 0.0 or (gelu and share < 1e-4 and ulps <= 1.0))
+    return share, ulps
+
+
+def _parent_encode(parent):
+    """The parent checkout's Whisper stem and model as modules of their own
+    (over this tree's other modules) → its ``encode``."""
+    import importlib.util
+
+    mods = {}
+    for name in ("stem", "model"):
+        spec = importlib.util.spec_from_file_location(
+            f"parent_wis_whisper_{name}",
+            os.path.join(parent, "wis_tpu_torch", "models", "whisper", f"{name}.py"))
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    mods["model"].conv_stem = mods["stem"].conv_stem
+    return mods["model"].encode
+
+
+def check_bias_act(torch, dev, engine, parent=None):
+    """Phase 20: the product epilogue (``ops/bias_act``, new: no TPU
+    kernel). At a window's three shapes the kernel against the parent's
+    chain (``bias_act_plain``), then kernel / plain / bound, timed in turns
+    parent chain / kernel / kernel / parent chain; the large-v2 encoder's
+    card time a window at B 1, 2 and 4 in turns parent / change / change /
+    parent (the parent checkout's encoder with ``parent``, else this one
+    under ``plain_epilogue``), their outputs, and the epilogue's launches
+    per encode and cross-KV; the four fused beam-5 requests of phase 5
+    (the bench's three and one with detection) served with the kernel and
+    with the parent's chain, each side capturing its own prefill graphs:
+    the same text. → {case: readings}."""
+    from wis_tpu_torch.audio.mel import N_SAMPLES, log_mel
+    from wis_tpu_torch.decoding.prefill_slots import PrefillSlots
+    from wis_tpu_torch.models.whisper.model import cross_kv, encode
+    from wis_tpu_torch.ops.bias_act import bias_act, bias_act_plain
+
+    out = {}
+    bf16 = torch.bfloat16
+    for rows, cols, y_name, gelu, res in EPILOGUE_CASES:
+        rng = np.random.default_rng(rows + cols)
+        y = torch.from_numpy(rng.standard_normal((rows, cols), dtype=np.float32) * 3)
+        y = y.to(dev, getattr(torch, y_name))
+        b = torch.from_numpy(rng.standard_normal(cols, dtype=np.float32)).to(dev, bf16)
+        r = torch.from_numpy(rng.standard_normal((rows, cols), dtype=np.float32)).to(dev, bf16) \
+            if res else None
+        kw = dict(gelu=gelu, residual=r, dtype=bf16)
+        got, want = bias_act(y, b, **kw), bias_act_plain(y, b, **kw)
+        torch.cuda.synchronize()
+        share, ulps = epilogue_agrees(torch, got, want, gelu)
+
+        def kernel():
+            return bias_act(y, b, **kw)
+
+        def plain():
+            return bias_act_plain(y, b, **kw)
+
+        t = [_median_ms(f) for f in (plain, kernel, kernel, plain)]
+        n_bytes = y.numel() * y.element_size() + cols * 2 + rows * cols * 2 * (2 if res else 1)
+        bound = _bound(n_bytes, 0, BF16_FLOPS)[0]
+        name = (f"bias_act ({rows},{cols}) {y_name} product"
+                + (" + GELU" if gelu else "") + (" + residual" if res else ""))
+        ms = min(t[1], t[2])
+        print(f"{name}: {share:.3e} of the elements differ from the parent's chain (up to "
+              f"{ulps:g} ulp); parent chain, kernel, kernel, parent chain "
+              + ", ".join(f"{x:.4f}" for x in t) + f" ms; bound {bound:.4f} ms "
+              f"({n_bytes / 1e6:.2f} MB), kernel at {100 * bound / ms:.1f}% of it")
+        out[(rows, cols)] = dict(ms=ms, plain_ms=min(t[0], t[3]), bound_ms=bound, turns_ms=t,
+                                 share=share, bound_by="bytes", library_ms=None,
+                                 max_abs_err=float((got.float() - want.float()).abs().max()))
+
+    loaded = engine.registry.get("large")
+    cfg, params = loaded.cfg, loaded.params
+    parent_encode = _parent_encode(parent) if parent else None
+
+    def before(mel):
+        with torch.inference_mode():
+            if parent_encode is not None:
+                return parent_encode(params, mel, cfg)
+            with plain_epilogue():
+                return encode(params, mel, cfg)
+
+    def after(mel):
+        with torch.inference_mode():
+            return encode(params, mel, cfg)
+
+    for batch in (1, 2, 4):
+        audio = np.zeros((batch, N_SAMPLES), np.int16)
+        for i in range(batch):
+            clip = _audio_i16(2000 + 1500 * i, 700 + i)
+            audio[i, :clip.shape[0]] = clip
+        mel = log_mel(torch.from_numpy(audio).to(dev).float() / 32768.0, n_mels=cfg.n_mels)
+        bias_act.launches = 0
+        got = after(mel)
+        n_enc = bias_act.launches
+        with torch.inference_mode():
+            cross_kv(params, got, cfg)
+        n_kv = bias_act.launches - n_enc
+        want = before(mel)
+        torch.cuda.synchronize()
+        expect(f"epilogue launches per encode {n_enc}, per cross-KV {n_kv}",
+               (n_enc, n_kv) == (EPI_ENCODE, EPI_XKV))
+        share = float((got.float() != want.float()).float().mean())
+        rel = float((got.float() - want.float()).norm() / want.float().norm())
+        t = [_median_ms(lambda f=f: f(mel), reps=2, replays=5) / batch
+             for f in (before, after, after, before)]
+        print(f"encode large-v2 B={batch}: launches bias_act {n_enc} per encode, {n_kv} per "
+              f"cross-KV; against the parent's {'checkout' if parent else 'chain'}: "
+              f"{share:.3e} of the elements differ, relative ‖Δ‖ {rel:.3e}; card ms a window, "
+              f"parent, change, change, parent: " + ", ".join(f"{x:.3f}" for x in t)
+              + f"; change/parent {min(t[1:3]) / min(t[0], t[3]):.3f}")
+        out[("encode", batch)] = dict(turns_ms=t, share=share, rel=rel)
+
+    def requests():
+        texts = []
+        for i, (ms, cap, detect) in enumerate([r + (False,) for r in REQUESTS]
+                                              + [(3840, 32, True)]):
+            res = engine.transcribe(_audio_i16(ms, i), beam_size=5, max_tokens=cap,
+                                    detect_language=detect)
+            texts.append(res.text)
+        return texts
+
+    # each side captures its prefill graphs into slots of its own (a pool
+    # whose graphs were all freed cannot take a capture again)
+    engine.settings.fused_decode = "auto"
+    kept = loaded.prefill_slots
+    loaded.prefill_slots = PrefillSlots()
+    mine = requests()
+    loaded.prefill_slots = PrefillSlots()
+    with plain_epilogue():
+        theirs = requests()
+    loaded.prefill_slots = kept
+    same = [a == b for a, b in zip(mine, theirs)]
+    print(f"four fused beam-5 requests, the kernel against the parent's chain: text equal "
+          f"{same}")
+    expect(f"requests' text against the parent's chain: {same}", all(same))
+    return out
+
+
 class PhaseClock:
     """Prints each phase's seconds as it ends."""
 
@@ -4316,6 +4511,7 @@ def main() -> int:
         return 1
     from wis_tpu_torch.device import resolve_device
     from wis_tpu_torch.ops import _build
+    from wis_tpu_torch.ops.bias_act import bias_act
     from wis_tpu_torch.ops.flash import flash_attention, flash_attention_packed
     from wis_tpu_torch.models.xtts.model import XTTSModel
     from wis_tpu_torch.ops.fused_decode import fused_decode_step
@@ -4389,7 +4585,7 @@ def main() -> int:
 
     counters = (layer_norm_cuda, flash_attention_packed, flash_attention, int8_matmul,
                 ancestry_attention, fused_decode_step, fused_logits_topk,
-                fused_logits_topk.grammar)
+                fused_logits_topk.grammar, bias_act)
     served = serve(torch, dev, engine, counters)
     clock.done(5)
     check_encode(torch, dev, loaded)
@@ -4472,6 +4668,8 @@ def main() -> int:
     clock.done(18)
     check_prefill_graphs(torch, dev, engine, args.parent)
     clock.done(19)
+    epi = check_bias_act(torch, dev, engine, args.parent)
+    clock.done(20)
 
     rows = [
         dict(name="layer_norm", source="wis_tpu_torch/csrc/layernorm.cu",
@@ -4542,6 +4740,11 @@ def main() -> int:
     for row, n in zip(rows, launches):
         row.update(route="cuda", launches=n)
     rows.append(moe_row)
+    # phase 20: new, no TPU kernel; the w1 product's epilogue of one
+    # window; launches of the four fused requests of phase 5
+    rows.append(dict(name="bias_act(1500x5120, GELU)", source="wis_tpu_torch/csrc/bias_act.cu",
+                     replaces="none (new)", route="cuda", launches=fused["bias_act"],
+                     **{k: v for k, v in epi[(1500, 5120)].items() if k in keys}))
     print(json.dumps({"kernels": [{key: row[key] for key in keys} for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,7 @@ ENTRIES = [
     ("fused_gpt", "fused_gpt_step", "fused_gpt_step"),
     ("fused_gpt_head", "fused_gpt_head", "fused_gpt_head"),
     ("moe_experts", "grouped_swiglu", "grouped_swiglu"),
+    ("bias_act", "bias_act", "bias_act"),
 ]
 
 
@@ -302,6 +303,12 @@ def _case(path, dev):
         inputs = chip_smoke._gpt_head_decision_case(torch, dev, cfg, seed=5)[0]
         knobs = torch.tensor([[0.1, 50, 0.8, 7.0, 1.0, 1.0, 0.0, 0.0]], device=dev)
         return lambda: e(*inputs, knobs, cfg=cfg), {e: 1}
+    if path == "bias_act":
+        from wis_tpu_torch.ops.bias_act import bias_act as e
+
+        y, r = K._randn(rng, (20, 1280), dev, bf16), K._randn(rng, (20, 1280), dev, bf16)
+        b = K._randn(rng, (1280,), dev, bf16)
+        return lambda: e(y, b, gelu=True, residual=r), {e: 1}
     from wis_tpu_torch.ops.moe_experts import grouped_swiglu as e
 
     h = K._randn(rng, (8, 128), dev, bf16)

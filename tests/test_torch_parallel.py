@@ -320,16 +320,20 @@ def test_replicate_and_batch_sharding():
 # --------------------------------------------------------------------------- #
 # tp=None: the single-device path as it was
 # --------------------------------------------------------------------------- #
-def _parent_linear(x, w, b=None, tp=None):
+def _parent_linear(x, w, b=None, tp=None, *, gelu=False, residual=None):
     """``models/whisper/model.py`` ``_linear`` before tensor parallelism
-    (the call sites now pass ``tp``, None here)."""
+    (the call sites now pass ``tp``, None here), with the gelu and the
+    residual add the call sites now hand it done as they were after it."""
+    from wis_tpu_torch.ops.gelu import gelu as gelu_poly
     from wis_tpu_torch.ops.quant import qmatmul
 
     assert tp is None
     y = qmatmul(x, w)
     if b is not None:
         y = (y.float() + b.float()).to(x.dtype)
-    return y
+    if gelu:
+        y = gelu_poly(y)
+    return y if residual is None else residual + y
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

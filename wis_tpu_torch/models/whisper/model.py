@@ -24,8 +24,11 @@ D % 128 == 0 goes to ``ops/layernorm.layer_norm_cuda`` unless
 (``ops/flash``, bf16 only), or the plain formula. On the CPU everything
 takes the plain formulas, as the JAX package does off TPU. The eager
 decoder's beam self-attention runs ``ops/decode_attn.ancestry_attention``
-(the kernel on a CUDA device, its plain version on the CPU), and every
-int8 product the ``ops/quant.int8_matmul`` kernel (through ``qmatmul``).
+(the kernel on a CUDA device, its plain version on the CPU), every
+int8 product the ``ops/quant.int8_matmul`` kernel (through ``qmatmul``),
+and every biased product's epilogue — bias, then gelu or the residual add
+that follows it — ``ops/bias_act.bias_act`` (one kernel launch on a CUDA
+device, the plain chain on the CPU).
 
 Tensor parallelism: ``encode``, ``cross_kv``, ``DecoderCache.zeros``,
 ``prefill`` and ``decode_step`` take ``tp``, this rank's model axis
@@ -47,9 +50,9 @@ import torch
 from wis_tpu_torch.models.whisper.config import WhisperConfig
 from wis_tpu_torch.models.whisper.stem import conv_stem
 from wis_tpu_torch.ops.attention import NEG_INF, merge_heads, mha, qkv_heads
+from wis_tpu_torch.ops.bias_act import bias_act
 from wis_tpu_torch.ops.decode_attn import ancestry_attention, global_rows
 from wis_tpu_torch.ops.flash import flash_attention, flash_attention_packed
-from wis_tpu_torch.ops.gelu import gelu
 from wis_tpu_torch.ops.layernorm import layer_norm_cuda
 from wis_tpu_torch.ops.layernorm import layer_norm_plain as layer_norm
 from wis_tpu_torch.ops.quant import matmul_f32
@@ -63,14 +66,16 @@ def _layer(tree: dict, li: int) -> dict:
     }
 
 
-def _linear(x, w, b=None, tp: Optional[ModelAxis] = None):
+def _linear(x, w, b=None, tp: Optional[ModelAxis] = None, *, gelu=False, residual=None):
     # double rounding as in the JAX package: the matmul rounds to x.dtype,
     # then the f32 bias add rounds again. A row-parallel product (``tp``)
     # rounds after the f32 sum across the ranks, and the bias (whole on
-    # every rank) is added once, after that.
+    # every rank) is added once, after that. With a bias, the bias, the
+    # optional gelu and the optional ``residual +`` run as one epilogue
+    # (``ops/bias_act``: one kernel launch on the card).
     y = row_parallel(x, w, tp)
     if b is not None:
-        y = (y.float() + b.float()).to(x.dtype)
+        y = bias_act(y, b, gelu=gelu, residual=residual)
     return y
 
 
@@ -89,29 +94,30 @@ def attention_route(device_type: str, t: int, d: int, n_heads: int) -> str:
     return "head_major" if dh % 8 == 0 else "plain"
 
 
-def _attn_block(x, blk, n_heads, tp=None):
-    """Encoder self-attention for one layer over this rank's n_heads.
-    Long sequences on the card run a flash kernel, so the (H, T, T) scores
-    never reach device memory: the packed one keeps q/k/v (B, T, D) end to
-    end, the head-major one takes them split into heads, as the JAX
-    package's does."""
+def _attn_block(x, blk, n_heads, tp=None, residual=None):
+    """Encoder self-attention for one layer over this rank's n_heads, plus
+    ``residual``. Long sequences on the card run a flash kernel, so the
+    (H, T, T) scores never reach device memory: the packed one keeps q/k/v
+    (B, T, D) end to end, the head-major one takes them split into heads,
+    as the JAX package's does."""
     q = _linear(x, blk["q_w"], blk["q_b"])
     k = _linear(x, blk["k_w"])
     v = _linear(x, blk["v_w"], blk["v_b"])
     route = attention_route(x.device.type, x.shape[-2], x.shape[-1], n_heads)
     if route == "packed":
-        return _linear(flash_attention_packed(q, k, v, n_heads), blk["o_w"], blk["o_b"], tp)
+        return _linear(flash_attention_packed(q, k, v, n_heads), blk["o_w"], blk["o_b"], tp,
+                       residual=residual)
     q, k, v = (qkv_heads(t, n_heads) for t in (q, k, v))
     if route == "head_major":
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     else:
         out = mha(q, k, v)
-    return _linear(merge_heads(out), blk["o_w"], blk["o_b"], tp)
+    return _linear(merge_heads(out), blk["o_w"], blk["o_b"], tp, residual=residual)
 
 
-def _mlp(x, blk, tp=None):
-    h = gelu(_linear(x, blk["w1"], blk["b1"]))
-    return _linear(h, blk["w2"], blk["b2"], tp)
+def _mlp(x, blk, tp=None, residual=None):
+    h = _linear(x, blk["w1"], blk["b1"], gelu=True)
+    return _linear(h, blk["w2"], blk["b2"], tp, residual=residual)
 
 
 def layer_norm_route(device_type: str, d: int) -> str:
@@ -143,13 +149,14 @@ def encode(params: dict, mel: torch.Tensor, cfg: WhisperConfig,
     x = conv_stem(enc, mel, tp)
     for li in range(cfg.n_audio_layer):
         blk = _layer(enc["blocks"], li)
-        x = x + _attn_block(
+        x = _attn_block(
             _enc_ln(x, blk["attn_ln"]["g"], blk["attn_ln"]["b"]),
             blk["attn"],
             n_heads,
             tp,
+            residual=x,
         )
-        x = x + _mlp(_enc_ln(x, blk["mlp_ln"]["g"], blk["mlp_ln"]["b"]), blk["mlp"], tp)
+        x = _mlp(_enc_ln(x, blk["mlp_ln"]["g"], blk["mlp_ln"]["b"]), blk["mlp"], tp, residual=x)
     return _enc_ln(x, enc["ln_post"]["g"], enc["ln_post"]["b"])
 
 
@@ -278,21 +285,24 @@ def _decoder_pass(
         # in-place column write at [li, :, :, :, pos_offset:pos_offset+t)
         cache.k[li, :, :, :, pos_offset : pos_offset + t] = k_new.transpose(-1, -2)
         cache.v[li, :, :, :, pos_offset : pos_offset + t] = v_new.transpose(-1, -2)
-        x = x + _linear(
+        x = _linear(
             merge_heads(attn_fn(q, cache.k[li], cache.v[li])),
             blk["attn"]["o_w"],
             blk["attn"]["o_b"],
             tp,
+            residual=x,
         )
         h = layer_norm(x, blk["cross_ln"]["g"], blk["cross_ln"]["b"])
         qc = qkv_heads(_linear(h, blk["cross"]["q_w"], blk["cross"]["q_b"]), n_head)
-        x = x + _linear(
+        x = _linear(
             merge_heads(_cross_attn(qc, xa_k[li], xa_v[li])),
             blk["cross"]["o_w"],
             blk["cross"]["o_b"],
             tp,
+            residual=x,
         )
-        x = x + _mlp(layer_norm(x, blk["mlp_ln"]["g"], blk["mlp_ln"]["b"]), blk["mlp"], tp)
+        x = _mlp(layer_norm(x, blk["mlp_ln"]["g"], blk["mlp_ln"]["b"]), blk["mlp"], tp,
+                 residual=x)
 
     x = layer_norm(x, dec["ln"]["g"], dec["ln"]["b"])
     if "tok_emb_q" in dec:

@@ -10,12 +10,14 @@ Both convs are im2col by reshape, no gathers:
 
 Each matmul accumulates and returns f32 before the bias add (one rounding
 to the working dtype, as the JAX package's ``preferred_element_type``),
-then the tanh-form gelu (``ops/gelu.py``).
+then the tanh-form gelu (``ops/gelu.py``); conv2 then adds the positions.
+Each conv's bias, gelu and (conv2) positions run as one epilogue
+(``ops/bias_act``: one kernel launch on the card).
 
 Under tensor parallelism (``tp``) both convs are column-parallel: each
 rank holds its share of the output channels (``parallel/mesh.py``
 ``whisper_param_specs``), and each conv's output is all-gathered along D
-before the next step reads it.
+before the next step reads it (the positions added after the gather).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from wis_tpu_torch.ops.gelu import gelu
+from wis_tpu_torch.ops.bias_act import bias_act
 from wis_tpu_torch.ops.quant import matmul_f32
 from wis_tpu_torch.parallel.axis import ModelAxis
 
@@ -43,7 +45,7 @@ def conv_stem(enc: dict, mel: torch.Tensor, tp: Optional[ModelAxis] = None) -> t
     xp = F.pad(x, (0, 0, 1, 1))
     z1 = torch.cat([xp[:, 0:t], xp[:, 1 : t + 1], xp[:, 2 : t + 2]], dim=-1)
     y = matmul_f32(z1, w1.reshape(3 * c, w1.shape[-1]))
-    y = gelu((y + enc["conv1"]["b"].float()).to(dtype))
+    y = bias_act(y, enc["conv1"]["b"], gelu=True, dtype=dtype)
     if tp is not None:
         y = tp.all_gather(y, dim=-1)
     d = y.shape[-1]
@@ -55,7 +57,8 @@ def conv_stem(enc: dict, mel: torch.Tensor, tp: Optional[ModelAxis] = None) -> t
     odd_prev = F.pad(odd[:, :-1], (0, 0, 1, 0))  # y[2t-1]
     z2 = torch.cat([odd_prev, even, odd], dim=-1)  # (B, T/2, 3D)
     y2 = matmul_f32(z2, w2.reshape(3 * d, w2.shape[-1]))
-    y2 = gelu((y2 + enc["conv2"]["b"].float()).to(dtype))
-    if tp is not None:
-        y2 = tp.all_gather(y2, dim=-1)
-    return y2 + enc["pos"].to(dtype)
+    pos = enc["pos"].to(dtype)
+    if tp is None:
+        return bias_act(y2, enc["conv2"]["b"], gelu=True, residual=pos, dtype=dtype)
+    y2 = tp.all_gather(bias_act(y2, enc["conv2"]["b"], gelu=True, dtype=dtype), dim=-1)
+    return y2 + pos

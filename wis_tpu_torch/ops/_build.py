@@ -131,6 +131,8 @@ def kernels() -> ctypes.CDLL:
             lib.wis_moe_gate_up.restype = i
             lib.wis_moe_down.argtypes = [p] * 7 + [i] * 6 + [p]
             lib.wis_moe_down.restype = i
+            lib.wis_bias_act.argtypes = [p] * 4 + [ll, i, ll] + [i] * 5 + [p]
+            lib.wis_bias_act.restype = i
             _lib = lib
         return _lib
 
